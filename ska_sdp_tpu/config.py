@@ -58,11 +58,8 @@ class ImagingConfig:
     grid: GridParams = GridParams()
     kernel: KernelOptions = KernelOptions()
     precision_name: str = "single"
-    backend: str = "jax"         # "jax" | "pallas" | "oracle"
     n_vis: Optional[int] = None  # visibility-count cap (CLI -n); None = all
     use_old_path: bool = False   # CLI -old: per-vis scatter (convgrid3 analog)
-    aw_slab: int = 1 << 16       # patch-stream AW fallback slab size
-                                 # (kernels.aw_gridder `slab`)
 
     @property
     def precision(self) -> Precision:

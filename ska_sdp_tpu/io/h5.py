@@ -7,7 +7,10 @@ h5py implementation with the identical Python-visible API; the two are
 interchangeable and cross-validated in the test suite.
 
 Select with env ``SKA_SDP_TPU_H5_BACKEND`` in {"native", "h5py", "auto"}
-(default auto: native if it builds/loads, else h5py).
+(default auto: native if it builds/loads, else h5py).  The native library
+needs ``g++`` and a system ``libhdf5`` at run time; h5py is an optional
+extra (``pip install .[h5py]``).  Neither is imported until the first
+HDF5 call, so the rest of the package imports without either.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ def _resolve():
     if _backend is not None:
         return _backend
     choice = os.environ.get("SKA_SDP_TPU_H5_BACKEND", "auto")
+    native_error = None
     if choice in ("auto", "native"):
         try:
             from . import native_backend
@@ -33,9 +37,18 @@ def _resolve():
             native_backend.ensure_loaded()
             _backend, _backend_name = native_backend, "native"
             return _backend
-        except Exception:
+        except Exception as e:
             if choice == "native":
                 raise
+            native_error = e
+    try:
+        h5py_backend._h5py()
+    except ImportError as e:
+        raise RuntimeError(
+            "no HDF5 backend available: the native library could not be "
+            f"built or loaded ({native_error!r}; it needs g++ and a system "
+            "libhdf5) and h5py is not installed"
+        ) from e
     _backend, _backend_name = h5py_backend, "h5py"
     return _backend
 

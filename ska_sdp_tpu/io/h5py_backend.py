@@ -11,8 +11,15 @@ from __future__ import annotations
 
 import os
 
-import h5py
 import numpy as np
+
+
+def _h5py():
+    """Import h5py on first use: it is an optional extra, and the rest of
+    the package must import without it."""
+    import h5py
+
+    return h5py
 
 
 def fix_ext(path: str) -> str:
@@ -20,12 +27,12 @@ def fix_ext(path: str) -> str:
 
 
 def create_file(path: str) -> None:
-    with h5py.File(fix_ext(path), "w"):
+    with _h5py().File(fix_ext(path), "w"):
         pass
 
 
 def read_dataset(path: str, name: str, dtype=None) -> np.ndarray:
-    with h5py.File(fix_ext(path), "r") as f:
+    with _h5py().File(fix_ext(path), "r") as f:
         arr = np.asarray(f[name])
     return arr if dtype is None else arr.astype(dtype)
 
@@ -33,7 +40,7 @@ def read_dataset(path: str, name: str, dtype=None) -> np.ndarray:
 def read_dataset_slice(path: str, name: str, start: int, count: int,
                        dtype=None) -> np.ndarray:
     """Read rows [start, start+count) along the leading axis."""
-    with h5py.File(fix_ext(path), "r") as f:
+    with _h5py().File(fix_ext(path), "r") as f:
         arr = np.asarray(f[name][start:start + count])
     return arr if dtype is None else arr.astype(dtype)
 
@@ -44,7 +51,7 @@ def read_datasets_stacked(path: str, names, dtype=None) -> np.ndarray:
     Analog of the reference's single-buffer multi-read
     (``hdf5/hdf5.cc:271-321``).
     """
-    with h5py.File(fix_ext(path), "r") as f:
+    with _h5py().File(fix_ext(path), "r") as f:
         arrs = [np.asarray(f[n]) for n in names]
     out = np.stack(arrs, axis=0)
     return out if dtype is None else out.astype(dtype)
@@ -54,17 +61,17 @@ def write_dataset(path: str, name: str, data: np.ndarray) -> None:
     """Create (or overwrite) a dataset, creating parent groups as needed."""
     path = fix_ext(path)
     mode = "a" if os.path.exists(path) else "w"
-    with h5py.File(path, mode) as f:
+    with _h5py().File(path, mode) as f:
         if name in f:
             del f[name]
         f.create_dataset(name, data=np.ascontiguousarray(data))
 
 
 def list_group(path: str, group: str) -> list[str]:
-    with h5py.File(fix_ext(path), "r") as f:
+    with _h5py().File(fix_ext(path), "r") as f:
         return list(f[group].keys())
 
 
 def dataset_shape(path: str, name: str) -> tuple[int, ...]:
-    with h5py.File(fix_ext(path), "r") as f:
+    with _h5py().File(fix_ext(path), "r") as f:
         return tuple(f[name].shape)

@@ -24,7 +24,7 @@ constexpr int kMaxRank = 16;
 // Kinds 0-2 match the reference's pipeline dtypes; 3-6 complete the
 // reference C layer's capability set (plain INT + {r,i} int compound,
 // /root/reference/hdf5/hdf5.cc:80,106,204) and add the f32/c64 pair the
-// framework's run-precision checkpoints use (VERDICT r2 #9/#10).
+// framework's run-precision checkpoints use.
 enum Kind : int { kF64 = 0, kC128 = 1, kI64 = 2, kF32 = 3, kI32 = 4,
                   kC64 = 5, kCI32 = 6 };
 
@@ -208,7 +208,7 @@ int ska_h5_read_stacked(const char *path, const char *names_joined, int count,
 // Read a leading-axis slice rows [start, start+count) of a dataset into buf
 // via an H5Sselect_hyperslab file-space selection (out-of-core streaming
 // ingest; the reference's C1 covers all I/O its pipeline needs — hdf5.cc
-// readDataset :243-269 — and so must this layer, VERDICT r1 #5).
+// readDataset :243-269 — and so must this layer).
 int ska_h5_read_slice(const char *path, const char *name, int kind,
                       long long start, long long count, void *buf) {
   ensure_init();

@@ -161,8 +161,7 @@ def _sniff_dtype(path: str, name: str):
     """Stored-width dtype of a dataset (f32-stored data reads as f32 —
     run-precision checkpoints round-trip losslessly).
 
-    Caller audit (ADVICE r3 — callers that omit ``dtype`` and could see
-    narrower arrays than the pre-r3 promote-to-64-bit behavior): the vis/
+    Caller audit: the vis/
     wkern/akern loaders all pass explicit dtypes (``models/dataset.py``);
     the dtype-omitting callers read /vis/frequency and /img (always
     written float64 by this framework and the reference) or checkpoint

@@ -4,7 +4,7 @@ The reference loads entire datasets into memory before imaging
 (``ImageDataset.hs:36-41``); real SKA runs are multi-GB to multi-TB.
 ``SlabPrefetcher`` walks the visibility datasets in leading-axis slabs on a
 host thread, keeping a bounded queue of slabs ahead of the device so HDF5
-reads overlap TPU compute (SURVEY §7 hard part (e): host↔device ingest
+reads overlap device compute (SURVEY §7 hard part (e): host↔device ingest
 pipelining).
 """
 

@@ -21,7 +21,7 @@ layout of :mod:`ska_sdp_tpu.io.schema`:
   perturbations per antenna/time/frequency.
 
 Everything is numpy float64 on the host — dataset generation is I/O-side
-work and must not touch the TPU.
+work and never touches the accelerator.
 """
 
 from __future__ import annotations
@@ -147,27 +147,36 @@ def w_plane_centers(obs, cfg: SyntheticConfig) -> np.ndarray:
     return np.linspace(-wmax, wmax, cfg.nw_planes)
 
 
+def wkern_bank(centers, cfg: SyntheticConfig) -> np.ndarray:
+    """The oversampled w-kernel bank [nw, qpx, qpx, s, s] (unconjugated),
+    one plane per center — what :func:`write_wkern_file` stores."""
+    return np.stack([
+        oracle.w_kernel(cfg.theta, float(w), qpx=cfg.qpx,
+                        npix_ff=cfg.npix_ff, npix_kern=cfg.npix_kern)
+        for w in centers
+    ])
+
+
 def write_wkern_file(path: str, centers, cfg: SyntheticConfig) -> None:
     """Synthesize and store the oversampled w-kernel bank (unconjugated)."""
     h5.create_file(path)
-    for w in centers:
-        kern = oracle.w_kernel(
-            cfg.theta, float(w), qpx=cfg.qpx, npix_ff=cfg.npix_ff,
-            npix_kern=cfg.npix_kern,
-        )
+    for w, kern in zip(centers, wkern_bank(centers, cfg)):
         h5.write_dataset(
             path, schema.wkern_dataset(cfg.theta, schema.fmt_float(w)), kern
         )
 
 
-def write_akern_file(path: str, obs, cfg: SyntheticConfig) -> None:
-    """Near-delta A-kernels per antenna at a few times/frequencies."""
+def akern_stamps(obs, cfg: SyntheticConfig):
+    """Near-delta A-kernels per antenna at a few times/frequencies: a list
+    of ((antenna, time, frequency), [s, s] kernel) in the order
+    :func:`write_akern_file` stores them.  The first time and frequency
+    are the observation's own, so ``akerns_at_start`` picks those."""
     rng = np.random.default_rng(cfg.seed + 1)
-    h5.create_file(path)
     s = cfg.akern_size
     t0 = float(obs["time"][0])
     times = [t0, t0 + 0.02]
     freqs = [float(obs["frequency"][0]), float(obs["frequency"][0]) * 1.1]
+    out = []
     for ant in range(cfg.nant):
         for tt in times:
             for ff in freqs:
@@ -176,16 +185,34 @@ def write_akern_file(path: str, obs, cfg: SyntheticConfig) -> None:
                 k += 0.01 * (
                     rng.standard_normal((s, s)) + 1j * rng.standard_normal((s, s))
                 )
-                h5.write_dataset(
-                    path,
-                    schema.akern_dataset(
-                        cfg.theta,
-                        str(ant),
-                        schema.fmt_float(tt),
-                        schema.fmt_float(ff),
-                    ),
-                    k,
-                )
+                out.append(((ant, tt, ff), k))
+    return out
+
+
+def akerns_at_start(obs, cfg: SyntheticConfig) -> np.ndarray:
+    """[nant, s, s] A-kernels at the observation's first time and
+    frequency — what ``models.dataset.get_akernels`` selects from the
+    file :func:`write_akern_file` writes."""
+    t0 = float(obs["time"][0])
+    f0 = float(obs["frequency"][0])
+    return np.stack([k for (_, tt, ff), k in akern_stamps(obs, cfg)
+                     if tt == t0 and ff == f0])
+
+
+def write_akern_file(path: str, obs, cfg: SyntheticConfig) -> None:
+    """Store :func:`akern_stamps` in the reference's akern tree layout."""
+    h5.create_file(path)
+    for (ant, tt, ff), k in akern_stamps(obs, cfg):
+        h5.write_dataset(
+            path,
+            schema.akern_dataset(
+                cfg.theta,
+                str(ant),
+                schema.fmt_float(tt),
+                schema.fmt_float(ff),
+            ),
+            k,
+        )
 
 
 def generate_dataset(dirpath: str, cfg: SyntheticConfig = SyntheticConfig()):

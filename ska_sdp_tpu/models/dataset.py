@@ -1,21 +1,31 @@
 """End-to-end dataset driver: HDF5 in → AW/w-projection imaging → HDF5 out.
 
-TPU-native rebuild of the reference's L6 layer
+Rebuild of the reference's L6 layer
 (``/root/reference/src/ImageDataset.hs:29-148`` ``aw_gridding`` +
 ``getAKernels``/``getWKernels``): ingest visibilities and kernel banks,
 preprocess uvw, run the imaging pipeline under one ``jax.jit``, Hermitian-
 complete, inverse-FFT, return the dirty image and its maximum, optionally
 writing ``/img`` back to HDF5.
 
-Host/device split: all HDF5 + kernel selection + sorting happens on the host
-with numpy; the single jitted device program covers uvw scaling → weighting →
-mirroring → gridding → hermitian → ifft (the reference JITs the same region
-via its ``run`` backend injection, ``ImageDataset.hs:76-77``).
+Each file-level driver (``w_gridding``, ``idg_gridding``, ``aw_gridding``
+and the ``*_predict`` drivers) is ingest → an array-level function
+(``w_image``, ``idg_image``, ``aw_image``, ``w_predict_vis``,
+``idg_predict_vis``, ``aw_predict_vis``) → write.  The array-level
+functions hold everything between the two — host-side preparation and
+the jitted device program — and take a :class:`VisData` plus kernel
+arrays, so a caller with data already in memory runs the same path
+without HDF5.
+
+Host/device split: HDF5, kernel selection and run bounds happen on the
+host with numpy; the single jitted device program covers uvw scaling →
+weighting → mirroring → gridding → hermitian → ifft (the reference JITs
+the same region via its ``run`` backend injection,
+``ImageDataset.hs:76-77``).
 """
 
 from __future__ import annotations
 
-import os
+import sys
 from functools import partial
 from typing import NamedTuple, Optional
 
@@ -25,14 +35,31 @@ import numpy as np
 
 from ..config import ImagingConfig
 from ..io import h5, schema
-from ..kernels import wproj_gridder
 from ..ops import (
+    convgrid_wproj,
+    degrid_wproj,
     doweight,
+    fft_centered,
     find_closest,
     ifft_centered,
     make_grid_hermitian,
     mirror_uvw,
     uvw_lambda,
+)
+from ..ops.idg import (
+    fov_pad_finish,
+    fov_pad_geometry,
+    fov_pad_start,
+    idg_degrid_wproj,
+    idg_grid_wproj,
+    kaiser_taper,
+    taper_fine,
+)
+from ..ops.idg_aw import (
+    aw_screens_host,
+    count_pair_tile_runs,
+    idg_degrid_aw,
+    idg_grid_aw,
 )
 from ..utils.cplx import complex_safe_jit
 from ..utils.timing import PhaseTimer
@@ -63,9 +90,8 @@ def _require_file(path: str) -> None:
         raise FileNotFoundError(f"input HDF5 file does not exist: {p}")
 
 
-def load_vis_data(datfile: str) -> VisData:
-    """Read the /vis tree (reference readVis/readBaselines/readSource,
-    ``ImageDataset.hs:86-106``).
+def _vis_data(raw, uvw, a1, a2, t, f) -> VisData:
+    """Assemble a :class:`VisData` from the /vis arrays.
 
     The rank-3 vis block's trailing axis is the spectral channel; the
     reference flattens it and images every (record, channel) at the
@@ -75,13 +101,7 @@ def load_vis_data(datfile: str) -> VisData:
     full spectral data as ``vis_chan [n, nch]`` + ``frequencies [nch]``
     for the multi-channel drivers (``channels=`` arguments).
     """
-    _require_file(datfile)
-    raw = h5.read_dataset(datfile, schema.VIS_VIS, dtype=np.complex128)
-    uvw = h5.read_dataset(datfile, schema.VIS_UVW, dtype=np.float64)
-    a1 = h5.read_dataset(datfile, schema.VIS_ANTENNA1, dtype=np.int64)
-    a2 = h5.read_dataset(datfile, schema.VIS_ANTENNA2, dtype=np.int64)
-    t = h5.read_dataset(datfile, schema.VIS_TIME, dtype=np.float64)
-    f = h5.read_dataset(datfile, schema.VIS_FREQUENCY, dtype=np.float64).reshape(-1)
+    f = np.asarray(f, np.float64).reshape(-1)
     nch = f.shape[0]
     if nch > 1 and raw.ndim >= 1 and raw.shape[-1] == nch:
         vis_chan = raw.reshape(-1, nch)
@@ -89,6 +109,33 @@ def load_vis_data(datfile: str) -> VisData:
         vis_chan = raw.reshape(-1, 1)     # single channel (or legacy file)
     return VisData(vis_chan[:, 0], uvw, a1, a2, t, float(f[0]),
                    vis_chan, f[:vis_chan.shape[1]])
+
+
+def load_vis_data(datfile: str) -> VisData:
+    """Read the /vis tree (reference readVis/readBaselines/readSource,
+    ``ImageDataset.hs:86-106``)."""
+    _require_file(datfile)
+    return _vis_data(
+        h5.read_dataset(datfile, schema.VIS_VIS, dtype=np.complex128),
+        h5.read_dataset(datfile, schema.VIS_UVW, dtype=np.float64),
+        h5.read_dataset(datfile, schema.VIS_ANTENNA1, dtype=np.int64),
+        h5.read_dataset(datfile, schema.VIS_ANTENNA2, dtype=np.int64),
+        h5.read_dataset(datfile, schema.VIS_TIME, dtype=np.float64),
+        h5.read_dataset(datfile, schema.VIS_FREQUENCY, dtype=np.float64),
+    )
+
+
+def vis_data_from_observation(obs) -> VisData:
+    """The :class:`VisData` that :func:`load_vis_data` returns for a file
+    written from ``io.synthetic.simulate_observation``'s ``obs``."""
+    return _vis_data(
+        np.asarray(obs["vis"], np.complex128),
+        np.asarray(obs["uvw"], np.float64),
+        np.asarray(obs["antenna1"], np.int64),
+        np.asarray(obs["antenna2"], np.int64),
+        np.asarray(obs["time"], np.float64),
+        obs["frequency"],
+    )
 
 
 def _closest(sorted_pairs, x: float) -> str:
@@ -135,22 +182,93 @@ def get_wkernels(wfile: str, theta: float):
     return bank, centers
 
 
-@partial(complex_safe_jit,
-         static_argnames=("theta", "lam", "chunk", "slab"))
-def _aw_pipeline(wkerns, wbins, akerns, uvw, a1, a2, ts, f, vis, *, theta,
-                 lam, chunk, slab=1 << 16):
-    """The jitted device program: preprocess → AW grid → hermitian → image.
+def _write_img(outfile, img, timer) -> None:
+    if outfile is not None:
+        with timer.phase("write/img"):
+            h5.create_file(outfile)
+            h5.write_dataset(outfile, schema.IMG_DATASET,
+                             np.asarray(img).astype(np.float64))
 
-    Complex inputs cross the boundary as real pairs (see utils.cplx) because
-    TPU PJRT transfer paths may not support complex dtypes.
-    """
+
+def _write_model_vis(outfile, pred, timer, phase="write/vis") -> None:
+    if outfile is not None:
+        with timer.phase(phase):
+            h5.create_file(outfile)
+            h5.write_dataset(outfile, "/vis/model",
+                             pred.astype(np.complex128))
+
+
+def _read_model(modelfile, theta, lam, timer) -> np.ndarray:
+    with timer.phase("ingest/model"):
+        img = np.asarray(h5.read_dataset(modelfile, schema.IMG_DATASET))
+    n_grid = int(round(theta * lam))
+    if img.shape != (n_grid, n_grid):
+        raise ValueError(
+            f"model image {img.shape} does not match grid "
+            f"({n_grid}, {n_grid}) for theta={theta}, lam={lam}"
+        )
+    return img
+
+
+def _taper_correct(img, n, n_grid, crop_lo, subgrid, taper_beta):
+    """Divide the IDG dirty image by the subgrid taper's fine-grid
+    interpolation and crop a padded FOV back to the target grid."""
+    tf = taper_fine(n_grid, subgrid, kaiser_taper(subgrid, taper_beta)
+                    ).astype(img.dtype)
+    img = img / (tf[:, None] * tf[None, :])
+    return fov_pad_finish(img, n, n_grid, crop_lo)
+
+
+def _model_grid(img, n, n_grid, crop_lo, subgrid, taper_beta):
+    """Model image → uv-grid for IDG degridding: embed in the padded FOV,
+    divide by the taper, forward FFT."""
+    imgp = fov_pad_start(img, n, n_grid, crop_lo)
+    tf = taper_fine(n_grid, subgrid, kaiser_taper(subgrid, taper_beta))
+    tf2 = (tf[:, None] * tf[None, :]).astype(img.dtype)
+    return fft_centered((imgp / tf2).astype(
+        jnp.complex64 if img.dtype == jnp.float32 else jnp.complex128))
+
+
+@partial(jax.jit, static_argnames=("lam", "n_grid", "subgrid", "mirror"))
+def _run_count(uvw, f, a1, a2, ratio, *, lam, n_grid, subgrid, mirror):
+    uvw0 = uvw_lambda(f, uvw)
+    if mirror:
+        uvw0, _ = mirror_uvw(uvw0, jnp.zeros((uvw.shape[0],), jnp.complex64))
+    return count_pair_tile_runs((n_grid, n_grid), uvw0 / lam * ratio, a1, a2,
+                                subgrid=subgrid)
+
+
+def idg_aw_max_runs(uvw, f, a1, a2, *, theta, lam, subgrid, fov_pad=None,
+                    mirror=True, ratios=(1.0,)) -> int:
+    """Static ``max_runs`` for IDG-AW on these records.
+
+    The exact (pair, uv-tile) run count of the chunking
+    (``ops.idg_aw.count_pair_tile_runs``) on the coordinates the pipeline
+    grids — mirrored for gridding, unmirrored for degridding, dilated by
+    each channel ``ratio`` — plus 1/64 + 64 slack for float rounding
+    between this count and the jitted pipeline's own coordinates, rounded
+    up to a multiple of 1024 so similar datasets share one compiled
+    program.  Records are never dropped for want of runs; drops that do
+    occur are still counted by the gridder."""
+    _, n_grid, _, _ = fov_pad_geometry(theta, lam, fov_pad)
+    runs = max(
+        int(_run_count(uvw, f, a1, a2, r, lam=lam, n_grid=n_grid,
+                       subgrid=subgrid, mirror=mirror))
+        for r in ratios)
+    bound = runs + runs // 64 + 64
+    return -(-bound // 1024) * 1024
+
+
+@partial(complex_safe_jit, static_argnames=("theta", "lam", "chunk"))
+def _aw_pipeline(wkerns, wbins, akerns, uvw, a1, a2, ts, f, vis, *, theta,
+                 lam, chunk):
+    """The jitted device program: preprocess → AW grid → hermitian → image."""
     uvw0 = uvw_lambda(f, uvw)
     wt = doweight(theta, lam, uvw0, jnp.ones_like(vis))
     uvw1, vis1 = mirror_uvw(uvw0, vis)
     src = (a1, a2, ts, f)
     guv = aw_imaging(
-        theta, lam, wkerns, wbins, akerns, uvw1, src, wt * vis1,
-        chunk=chunk, slab=slab,
+        theta, lam, wkerns, wbins, akerns, uvw1, src, wt * vis1, chunk=chunk,
     )
     img = jnp.real(ifft_centered(make_grid_hermitian(guv)))
     return img, jnp.max(img)
@@ -159,17 +277,15 @@ def _aw_pipeline(wkerns, wbins, akerns, uvw, a1, a2, ts, f, vis, *, theta,
 def _wproj_staged(bank_conj, wbins, uvw, f, vis, *, theta, lam, chunk,
                   timer, dump_to=None):
     """Stage-synchronized w-projection pipeline for device-time
-    attribution (see ``w_gridding(device_phases=True)``).
+    attribution (see ``w_image(device_phases=True)``).
 
     Complex data never crosses the host boundary: stages exchange (re, im)
     real planes; intermediates stay on device between dispatches.
     """
-    from functools import partial as _partial
-
     n_grid = int(round(theta * lam))
     timer.dispatch_floor()
 
-    @_partial(jax.jit, static_argnames=("theta", "lam"))
+    @partial(jax.jit, static_argnames=("theta", "lam"))
     def prep(wbins, uvw, f, vr, vi, *, theta, lam):
         uvw0 = uvw_lambda(f, uvw)
         wt = doweight(theta, lam, uvw0, jnp.ones_like(vr))
@@ -178,12 +294,12 @@ def _wproj_staged(bank_conj, wbins, uvw, f, vis, *, theta, lam, chunk,
         wbin = find_closest(wbins, uvw1[:, 2])
         return uvw1, wbin, jnp.real(vis1), jnp.imag(vis1)
 
-    @_partial(jax.jit, static_argnames=("theta", "lam", "chunk"))
-    def scatter(bank_re, bank_im, uvw1, wbin, vr1, vi1, *, theta, lam,
-                chunk):
+    @partial(jax.jit, static_argnames=("lam", "chunk"))
+    def scatter(bank_re, bank_im, uvw1, wbin, vr1, vi1, *, lam, chunk):
         bank = jax.lax.complex(bank_re, bank_im)
-        g = wproj_gridder(bank, (n_grid, n_grid), uvw1 / lam, wbin,
-                          jax.lax.complex(vr1, vi1), chunk=chunk)
+        vis1 = jax.lax.complex(vr1, vi1)
+        g = convgrid_wproj(bank, jnp.zeros((n_grid, n_grid), vis1.dtype),
+                           uvw1 / lam, wbin, vis1, chunk=chunk)
         return jnp.real(g), jnp.imag(g)
 
     @jax.jit
@@ -201,7 +317,7 @@ def _wproj_staged(bank_conj, wbins, uvw, f, vis, *, theta, lam, chunk,
         "preprocess", prep, wbins, uvw, f, vr, vi, theta=theta, lam=lam)
     g_re, g_im = timer.device_stage(
         "scatter", scatter, bank_re, bank_im, uvw1, wbin, vr1, vi1,
-        theta=theta, lam=lam, chunk=chunk)
+        lam=lam, chunk=chunk)
     img, mx = timer.device_stage("hermitian+ifft", image, g_re, g_im)
     if dump_to is not None:
         # debug-dump the pipeline intermediates — the asserted-pipeline
@@ -227,23 +343,20 @@ def _wproj_pipeline(bank_conj, wbins, uvw, f, vis, *, theta, lam, chunk):
     uvw1, vis1 = mirror_uvw(uvw0, vis)
     n = int(round(theta * lam))
     wbin = find_closest(wbins, uvw1[:, 2])
-    # dispatches to the Pallas tile-privatized kernel on TPU, XLA elsewhere
-    guv = wproj_gridder(bank_conj, (n, n), uvw1 / lam, wbin, wt * vis1,
-                        chunk=chunk)
+    guv = convgrid_wproj(bank_conj, jnp.zeros((n, n), vis1.dtype),
+                         uvw1 / lam, wbin, wt * vis1, chunk=chunk)
     img = jnp.real(ifft_centered(make_grid_hermitian(guv)))
     return img, jnp.max(img)
 
 
 def _aw_fused_staged(wkerns, wbins, akerns, uvw, a1, a2, ts, f, vis, *,
-                     theta, lam, chunk, slab, timer):
-    """Stage-synchronized fused-AW pipeline (``--device-phases --mode
-    aw``): preprocess / fused AW kernel / hermitian+iFFT device times
+                     theta, lam, chunk, timer):
+    """Stage-synchronized bank-AW pipeline (``--device-phases --mode
+    aw``): preprocess / AW gridder / hermitian+iFFT device times
     (cf. ``_aw_pipeline``; results identical, cross-stage fusion lost)."""
-    from functools import partial as _partial
-
     timer.dispatch_floor()
 
-    @_partial(jax.jit, static_argnames=("theta", "lam"))
+    @partial(jax.jit, static_argnames=("theta", "lam"))
     def prep(uvw, f, vr, vi, *, theta, lam):
         uvw0 = uvw_lambda(f, uvw)
         wt = doweight(theta, lam, uvw0, jnp.ones_like(vr))
@@ -251,13 +364,13 @@ def _aw_fused_staged(wkerns, wbins, akerns, uvw, a1, a2, ts, f, vis, *,
         vis1 = vis1 * wt.astype(vis1.dtype)
         return uvw1, jnp.real(vis1), jnp.imag(vis1)
 
-    @_partial(jax.jit, static_argnames=("theta", "lam", "chunk", "slab"))
+    @partial(jax.jit, static_argnames=("theta", "lam", "chunk"))
     def kern(wk_re, wk_im, wbins, ak_re, ak_im, uvw1, a1, a2, ts, f,
-             vr1, vi1, *, theta, lam, chunk, slab):
+             vr1, vi1, *, theta, lam, chunk):
         g = aw_imaging(
             theta, lam, jax.lax.complex(wk_re, wk_im), wbins,
             jax.lax.complex(ak_re, ak_im), uvw1, (a1, a2, ts, f),
-            jax.lax.complex(vr1, vi1), chunk=chunk, slab=slab,
+            jax.lax.complex(vr1, vi1), chunk=chunk,
         )
         return jnp.real(g), jnp.imag(g)
 
@@ -272,14 +385,14 @@ def _aw_fused_staged(wkerns, wbins, akerns, uvw, a1, a2, ts, f, vis, *,
     uvw1, vr1, vi1 = timer.device_stage(
         "preprocess", prep, uvw, f, vr, vi, theta=theta, lam=lam)
     g_re, g_im = timer.device_stage(
-        "aw-fused-kernel", kern,
+        "aw-grid", kern,
         np.ascontiguousarray(np.asarray(wkerns).real),
         np.ascontiguousarray(np.asarray(wkerns).imag),
         np.asarray(wbins),
         np.ascontiguousarray(np.asarray(akerns).real),
         np.ascontiguousarray(np.asarray(akerns).imag),
         uvw1, a1, a2, ts, f, vr1, vi1,
-        theta=theta, lam=lam, chunk=chunk, slab=slab)
+        theta=theta, lam=lam, chunk=chunk)
     img, mx = timer.device_stage("hermitian+ifft", image, g_re, g_im)
     return np.asarray(img), float(mx)
 
@@ -287,18 +400,12 @@ def _aw_fused_staged(wkerns, wbins, akerns, uvw, a1, a2, ts, f, vis, *,
 def _aw_idg_staged(screens, uvw, a1, a2, f, vis, *, theta, lam, subgrid,
                    taper_beta, max_runs, timer, fov_pad=None):
     """Stage-synchronized IDG-AW pipeline (``--device-phases --mode aw
-    --idg``): preprocess / run-sort / screen+kernel / image device times
+    --idg``): preprocess / grid / image device times
     (cf. ``_aw_idg_pipeline``; same fov_pad semantics)."""
-    from functools import partial as _partial
-
-    from .. import kernels
-    from ..ops.idg import (fov_pad_finish, fov_pad_geometry, kaiser_taper,
-                           taper_fine)
-
     n, n_grid, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)
     timer.dispatch_floor()
 
-    @_partial(jax.jit, static_argnames=("theta", "lam"))
+    @partial(jax.jit, static_argnames=("theta", "lam"))
     def prep(uvw, f, vr, vi, *, theta, lam):
         uvw0 = uvw_lambda(f, uvw)
         wt = doweight(theta, lam, uvw0, jnp.ones_like(vr))
@@ -307,13 +414,21 @@ def _aw_idg_staged(screens, uvw, a1, a2, f, vis, *, theta, lam, subgrid,
         return uvw1, jnp.real(vis1), jnp.imag(vis1)
 
     @jax.jit
+    def grid_stage(uvw1, a1, a2, vr1, vi1, s_re, s_im):
+        g, nd = idg_grid_aw(
+            (n_grid, n_grid), uvw1 / lam, a1, a2, uvw1[:, 2],
+            jax.lax.complex(vr1, vi1),
+            jax.lax.complex(s_re, s_im), theta=theta_g,
+            subgrid=subgrid, taper_beta=taper_beta,
+            max_runs=max_runs,
+        )
+        return jnp.real(g), jnp.imag(g), nd
+
+    @jax.jit
     def image(g_re, g_im):
         g = jax.lax.complex(g_re, g_im)
         img = jnp.real(ifft_centered(make_grid_hermitian(g)))
-        tf = taper_fine(n_grid, subgrid, kaiser_taper(subgrid, taper_beta)
-                        ).astype(img.dtype)
-        img = img / (tf[:, None] * tf[None, :])
-        img = fov_pad_finish(img, n, n_grid, crop_lo)
+        img = _taper_correct(img, n, n_grid, crop_lo, subgrid, taper_beta)
         return img, jnp.max(img)
 
     vr = np.ascontiguousarray(np.asarray(vis).real)
@@ -322,58 +437,18 @@ def _aw_idg_staged(screens, uvw, a1, a2, f, vis, *, theta, lam, subgrid,
     s_im = np.ascontiguousarray(np.asarray(screens).imag)
     uvw1, vr1, vi1 = timer.device_stage(
         "preprocess", prep, uvw, f, vr, vi, theta=theta, lam=lam)
-
-    if kernels._resolved_impl() == "pallas":
-        from ..kernels.idg_aw_pallas import (idg_aw_grid_from_records,
-                                             idg_aw_run_records)
-
-        @jax.jit
-        def sort_stage(uvw1, a1, a2, vr1, vi1):
-            return idg_aw_run_records(
-                (n_grid, n_grid), uvw1 / lam, a1, a2, uvw1[:, 2],
-                vr1, vi1, subgrid=subgrid, max_runs=max_runs,
-            )
-
-        @jax.jit
-        def kern_stage(recs, st, en, y0, x0, i1, i2, s_re, s_im):
-            return idg_aw_grid_from_records(
-                recs, st, en, y0, x0, i1, i2, (n_grid, n_grid),
-                s_re, s_im, theta=theta_g, subgrid=subgrid,
-                taper_beta=taper_beta,
-            )
-
-        recs, st, en, y0, x0, i1, i2, nd, _hw = timer.device_stage(
-            "run-sort", sort_stage, uvw1, a1, a2, vr1, vi1)
-        g_re, g_im = timer.device_stage(
-            "idg-aw-kernel", kern_stage, recs, st, en, y0, x0, i1, i2,
-            s_re, s_im)
-    else:
-        from ..ops.idg_aw import idg_grid_aw
-
-        @jax.jit
-        def grid_stage(uvw1, a1, a2, vr1, vi1, s_re, s_im):
-            g, nd = idg_grid_aw(
-                (n_grid, n_grid), uvw1 / lam, a1, a2, uvw1[:, 2],
-                jax.lax.complex(vr1, vi1),
-                jax.lax.complex(s_re, s_im), theta=theta_g,
-                subgrid=subgrid, taper_beta=taper_beta,
-                max_runs=max_runs,
-            )
-            return jnp.real(g), jnp.imag(g), nd
-
-        g_re, g_im, nd = timer.device_stage(
-            "idg-aw-grid", grid_stage, uvw1, a1, a2, vr1, vi1, s_re, s_im)
-
+    g_re, g_im, nd = timer.device_stage(
+        "idg-aw-grid", grid_stage, uvw1, a1, a2, vr1, vi1, s_re, s_im)
     img, mx = timer.device_stage("hermitian+ifft+taper", image, g_re, g_im)
     return np.asarray(img), float(mx), int(nd)
 
 
 @partial(complex_safe_jit,
          static_argnames=("theta", "lam", "subgrid", "taper_beta",
-                          "max_runs", "fov_pad", "layout"))
+                          "max_runs", "fov_pad"))
 def _aw_idg_pipeline(screens, uvw, a1, a2, f, vis, *, theta, lam,
                      subgrid=64, taper_beta=12.0, max_runs=4096,
-                     fov_pad=None, layout=None):
+                     fov_pad=None):
     """IDG-AW device program: image-domain A-screens on pair-chunked
     subgrids (``ops/idg_aw.py``) — continuous w, no w-kernel bank.
 
@@ -381,75 +456,108 @@ def _aw_idg_pipeline(screens, uvw, a1, a2, f, vis, *, theta, lam,
     (the A-screens are θ-independent — integer-cell taps sampled at the
     subgrid's own lattice — so padding only rescales the grid).
 
-    ``layout=(ntime, nbl)``: the records are the vis file's time-major
-    [ntime, nbl] raster (host-verified by the caller) — a device-side
-    transpose to pair-major then lets the Pallas prep skip its
-    comparison sort (``ordered=True``, ~7 ms/Mvis; VERDICT r3 #4).
-    Gridding is an order-invariant sum, so the image is unchanged.
-
     Returns (img, img max, n_dropped): ``n_dropped`` is the IDG-AW
     honesty count (in-bounds records whose chunk could not cover their
     uv spread — zero for track-like layouts; the caller must surface it).
     """
-    from ..kernels import idg_aw_gridder
-    from ..ops.idg import (fov_pad_finish, fov_pad_geometry, kaiser_taper,
-                           taper_fine)
-
     uvw0 = uvw_lambda(f, uvw)
     n, n_grid, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)
     # uniform weighting ALWAYS uses the target-FOV uv histogram: fov_pad
     # is a numerical-accuracy device and must not change the weighting
-    # semantics (ADVICE r3 — the padded grid's finer uv cells would)
+    # semantics (the padded grid's finer uv cells would)
     wt = doweight(theta, lam, uvw0, jnp.ones_like(vis))
     uvw1, vis1 = mirror_uvw(uvw0, vis)
-    wvis = wt * vis1
-    if layout is not None:
-        ntime, nbl = layout
-
-        def _pm(x):
-            return (x.reshape((ntime, nbl) + x.shape[1:])
-                    .swapaxes(0, 1)
-                    .reshape((ntime * nbl,) + x.shape[1:]))
-
-        uvw1, a1, a2, wvis = _pm(uvw1), _pm(a1), _pm(a2), _pm(wvis)
-    guv, nd = idg_aw_gridder(
-        (n_grid, n_grid), uvw1 / lam, a1, a2, uvw1[:, 2], wvis,
+    guv, nd = idg_grid_aw(
+        (n_grid, n_grid), uvw1 / lam, a1, a2, uvw1[:, 2], wt * vis1,
         screens, theta=theta_g, subgrid=subgrid, taper_beta=taper_beta,
-        max_runs=max_runs, ordered=layout is not None,
+        max_runs=max_runs,
     )
     img = jnp.real(ifft_centered(make_grid_hermitian(guv)))
-    tf = taper_fine(n_grid, subgrid, kaiser_taper(subgrid, taper_beta)
-                    ).astype(img.dtype)
-    img = img / (tf[:, None] * tf[None, :])
-    img = fov_pad_finish(img, n, n_grid, crop_lo)
+    img = _taper_correct(img, n, n_grid, crop_lo, subgrid, taper_beta)
     return img, jnp.max(img), nd
 
 
-def _detect_time_major_layout(a1, a2, time, n):
-    """Host-side sniff: are ``records[:n]`` an [ntime, nbl] raster (the
-    vis-file layout — same baseline set repeating per time slot)?
+def _aw_screens(akerns, theta, lam, subgrid, fov_pad, prec):
+    """Host screens for IDG-AW, sampled at the GRIDDING FOV's angular
+    scale — with fov_pad the grid FOV is theta·n_pad/n (``aw_screens``
+    docstring; delta stamps are scale-invariant, real ones are not)."""
+    n_t, n_g, _, _ = fov_pad_geometry(theta, lam, fov_pad)
+    return aw_screens_host(np.asarray(akerns, prec.np_complex), subgrid,
+                           fov_scale=n_g / n_t).astype(prec.np_complex)
 
-    Returns (ntime, nbl) if so, else None.  Used to run the IDG-AW prep
-    in ``ordered`` mode (transpose instead of sort); detection failure
-    just means the sorted path, never a wrong image.
-    """
-    t = np.asarray(time[:n])
-    if n == 0:
-        return None
-    if t[0] == t[-1]:
-        nbl = n
-    else:
-        nbl = int(np.argmax(t != t[0]))
-        if nbl == 0 or n % nbl != 0:
-            return None
-    ntime = n // nbl
-    a1r = np.asarray(a1[:n]).reshape(ntime, nbl)
-    a2r = np.asarray(a2[:n]).reshape(ntime, nbl)
-    tr = t.reshape(ntime, nbl)
-    if not (np.all(a1r == a1r[0]) and np.all(a2r == a2r[0])
-            and np.all(tr == tr[:, :1])):
-        return None
-    return ntime, nbl
+
+def aw_image(
+    data: VisData,
+    akerns,
+    wkerns=None,
+    wbins=None,
+    n: Optional[int] = None,
+    config: ImagingConfig = ImagingConfig(),
+    timer: Optional[PhaseTimer] = None,
+    idg: bool = False,
+    fov_pad: Optional[float] = None,
+    subgrid: int = 64,
+    device_phases: bool = False,
+):
+    """AW-projection imaging of in-memory data (the array-level half of
+    :func:`aw_gridding`).  ``idg=False`` grids with the on-the-fly
+    A1⊛A2⊛W bank kernels (``wkerns``/``wbins`` required); ``idg=True``
+    with image-domain A-screens (IDG-AW), whose drop count goes to
+    ``timer.counters["idg_aw/dropped"]`` and to stderr when non-zero.
+    Returns (image max, image ndarray)."""
+    timer = timer or PhaseTimer()
+    prec = config.precision
+    theta, lam = config.grid.theta, config.grid.lam
+    n = n if n is not None else data.vis.shape[0]
+    uvw = np.asarray(data.uvw[:n], prec.np_real)
+    f = np.asarray(data.frequency, prec.np_real)
+    vis = np.asarray(data.vis[:n], prec.np_complex)
+    a1 = np.asarray(data.antenna1[:n], np.int32)
+    a2 = np.asarray(data.antenna2[:n], np.int32)
+    if idg:
+        with timer.phase("h2d+compile+grid+fft"):
+            max_runs = idg_aw_max_runs(uvw, f, a1, a2, theta=theta, lam=lam,
+                                       subgrid=subgrid, fov_pad=fov_pad)
+            screens = _aw_screens(akerns, theta, lam, subgrid, fov_pad, prec)
+            kw = dict(theta=theta, lam=lam, subgrid=subgrid, taper_beta=12.0,
+                      max_runs=max_runs, fov_pad=fov_pad)
+            if device_phases:
+                img, mx, nd = _aw_idg_staged(screens, uvw, a1, a2, f, vis,
+                                             timer=timer, **kw)
+            else:
+                img, mx, nd = _aw_idg_pipeline(screens, uvw, a1, a2, f, vis,
+                                               **kw)
+            img = np.asarray(img)
+            mx = float(mx)
+            nd = int(nd)
+        if nd > 0:
+            print(f"warning: IDG-AW dropped {nd}/{n} visibilities "
+                  f"({100.0 * nd / max(n, 1):.2f}%) whose uv spread "
+                  "exceeded their pair-chunk's subgrid — the data is not "
+                  "track-ordered enough for IDG-AW; use the bank AW mode",
+                  file=sys.stderr)
+        timer.counters["idg_aw/dropped"] = float(nd)
+        return mx, img
+    with timer.phase("h2d+compile+grid+fft"):
+        # complex data stays numpy until the complex-safe jit boundary
+        aw_args = (
+            np.asarray(wkerns, prec.np_complex),
+            np.asarray(wbins, prec.np_real),
+            np.asarray(akerns, prec.np_complex),
+            uvw, a1, a2,
+            np.asarray(data.time[:n], prec.np_real),
+            f, vis,
+        )
+        chunk = min(8192, max(256, n))
+        if device_phases:
+            img, mx = _aw_fused_staged(*aw_args, theta=theta, lam=lam,
+                                       chunk=chunk, timer=timer)
+        else:
+            img, mx = _aw_pipeline(*aw_args, theta=theta, lam=lam,
+                                   chunk=chunk)
+        img = np.asarray(img)
+        mx = float(mx)
+    return mx, img
 
 
 def aw_gridding(
@@ -476,114 +584,60 @@ def aw_gridding(
     ``old`` selects the reference's convgrid3 scheduling variant; our batched
     gridder is numerically identical for both, so it only changes logging.
     ``idg=True`` selects the IDG-AW mode (image-domain A-screens on
-    pair-chunked subgrids, ``ops/idg_aw.py``): ~4x the fused spectral
-    path's throughput on baseline-track data, exact continuous-w, needs
+    pair-chunked subgrids, ``ops/idg_aw.py``): exact continuous-w, needs
     no w-kernel file; chunking drops are surfaced as a warning.
     """
     timer = timer or PhaseTimer()
-    prec = config.precision
-    theta, lam = config.grid.theta, config.grid.lam
-
+    theta = config.grid.theta
     with timer.phase("ingest/vis"):
         data = load_vis_data(datfile)
     with timer.phase("ingest/akern"):
         akerns = get_akernels(afile, theta, float(data.time[0]), data.frequency)
+    wkerns = wbins = None
     if not idg:
         with timer.phase("ingest/wkern"):
             wkerns, wbins = get_wkernels(wfile, theta)
+    mx, img = aw_image(data, akerns, wkerns, wbins, n=n, config=config,
+                       timer=timer, idg=idg, fov_pad=fov_pad,
+                       subgrid=subgrid, device_phases=device_phases)
+    _write_img(outfile, img, timer)
+    return mx, img
 
+
+def w_image(
+    data: VisData,
+    wkerns,
+    wbins,
+    n: Optional[int] = None,
+    config: ImagingConfig = ImagingConfig(),
+    timer: Optional[PhaseTimer] = None,
+    device_phases: bool = False,
+    dump_intermediates: Optional[str] = None,
+):
+    """w-projection imaging of in-memory data (the array-level half of
+    :func:`w_gridding`).  Returns (image max, image ndarray)."""
+    timer = timer or PhaseTimer()
+    prec = config.precision
+    theta, lam = config.grid.theta, config.grid.lam
     n = n if n is not None else data.vis.shape[0]
-    if idg:
-        from ..ops.idg_aw import aw_screens_host
-
-        a1 = np.asarray(data.antenna1[:n], np.int64)
-        a2 = np.asarray(data.antenna2[:n], np.int64)
-        nant_b = int(max(a1.max(initial=0), a2.max(initial=0))) + 2
-        npair = len(np.unique(a1 * nant_b + a2))
-        # run bound: each pair's track splits at coarse-uv-tile crossings
-        # (a handful per pair for smooth tracks); overflow is counted and
-        # warned, so a generous static bound costs only skipped chunks
-        max_runs = 8 * npair + n // 128 + 64
-        # screens must be sampled at the GRIDDING FOV's angular scale —
-        # with fov_pad the grid FOV is theta·n_pad/n (aw_screens_host
-        # docstring; delta stamps are scale-invariant, real ones are not)
-        from ..ops.idg import fov_pad_geometry
-
-        n_t, n_g, _, _ = fov_pad_geometry(theta, lam, fov_pad)
-        fov_scale = n_g / n_t
-        with timer.phase("h2d+compile+grid+fft"):
-            screens = aw_screens_host(
-                np.asarray(akerns, prec.np_complex), subgrid,
-                fov_scale=fov_scale,
-            ).astype(prec.np_complex)
-            if device_phases:
-                img, mx, nd = _aw_idg_staged(
-                    screens,
-                    np.asarray(data.uvw[:n], prec.np_real),
-                    a1.astype(np.int32), a2.astype(np.int32),
-                    np.asarray(data.frequency, prec.np_real),
-                    np.asarray(data.vis[:n], prec.np_complex),
-                    theta=theta, lam=lam, subgrid=subgrid,
-                    taper_beta=12.0, max_runs=max_runs, timer=timer,
-                    fov_pad=fov_pad,
-                )
-            else:
-                # time-major raster detected => ordered prep (transpose
-                # on device, no comparison sort — VERDICT r3 #4)
-                layout = _detect_time_major_layout(a1, a2, data.time, n)
-                img, mx, nd = _aw_idg_pipeline(
-                    screens,
-                    np.asarray(data.uvw[:n], prec.np_real),
-                    a1.astype(np.int32), a2.astype(np.int32),
-                    np.asarray(data.frequency, prec.np_real),
-                    np.asarray(data.vis[:n], prec.np_complex),
-                    theta=theta, lam=lam, max_runs=max_runs,
-                    fov_pad=fov_pad, subgrid=subgrid, layout=layout,
-                )
-            img = np.asarray(img)
-            mx = float(mx)
-            nd = int(nd)
-        if nd > 0:
-            import sys
-
-            print(f"warning: IDG-AW dropped {nd}/{n} visibilities "
-                  f"({100.0 * nd / max(n, 1):.2f}%) whose uv spread "
-                  "exceeded their pair-chunk's subgrid — the data is not "
-                  "track-ordered enough for IDG-AW; use the fused AW mode",
-                  file=sys.stderr)
-        timer.counters["idg_aw/dropped"] = float(nd)
-    else:
-        with timer.phase("h2d+compile+grid+fft"):
-            # complex data stays numpy until the complex-safe jit boundary
-            aw_args = (
-                np.asarray(wkerns, prec.np_complex),
-                np.asarray(wbins, prec.np_real),
-                np.asarray(akerns, prec.np_complex),
-                np.asarray(data.uvw[:n], prec.np_real),
-                np.asarray(data.antenna1[:n], np.int32),
-                np.asarray(data.antenna2[:n], np.int32),
-                np.asarray(data.time[:n], prec.np_real),
-                np.asarray(data.frequency, prec.np_real),
-                np.asarray(data.vis[:n], prec.np_complex),
-            )
-            if device_phases:
-                img, mx = _aw_fused_staged(
-                    *aw_args, theta=theta, lam=lam,
-                    chunk=min(8192, max(256, n)), slab=config.aw_slab,
-                    timer=timer,
-                )
-            else:
-                img, mx = _aw_pipeline(
-                    *aw_args, theta=theta, lam=lam,
-                    chunk=min(8192, max(256, n)), slab=config.aw_slab,
-                )
-            img = np.asarray(img)
-            mx = float(mx)
-
-    if outfile is not None:
-        with timer.phase("write/img"):
-            h5.create_file(outfile)
-            h5.write_dataset(outfile, schema.IMG_DATASET, img.astype(np.float64))
+    args = (
+        np.conj(np.asarray(wkerns, prec.np_complex)),
+        np.asarray(wbins, prec.np_real),
+        np.asarray(data.uvw[:n], prec.np_real),
+        np.asarray(data.frequency, prec.np_real),
+        np.asarray(data.vis[:n], prec.np_complex),
+    )
+    chunk = min(8192, max(256, n))
+    if device_phases or dump_intermediates:
+        img, mx = _wproj_staged(*args, theta=theta, lam=lam, chunk=chunk,
+                                timer=timer, dump_to=dump_intermediates)
+        return mx, img
+    with timer.phase("h2d+compile+grid+fft"):
+        img, mx = _wproj_pipeline(*args, theta=theta, lam=lam, chunk=chunk)
+        # the blocking fetch belongs INSIDE the phase: jit dispatch is
+        # async, so without it the phase measures only trace/dispatch
+        img = np.asarray(img)
+        mx = float(mx)
     return mx, img
 
 
@@ -603,71 +657,31 @@ def w_gridding(
     ``device_phases=True`` runs the pipeline as separately-synchronized
     stages (preprocess / scatter / hermitian+iFFT) so per-stage device
     times are attributable — the observability analog of the reference's
-    Accelerate ``dump_phases`` (VERDICT r2 #8).  Results are identical;
-    the staged run loses cross-stage fusion and each stage's time
-    includes one dispatch round-trip (reported as dispatch-floor).
+    Accelerate ``dump_phases``.  Results are identical; the staged run
+    loses cross-stage fusion and each stage's time includes one dispatch
+    round-trip (reported as dispatch-floor).
     """
     timer = timer or PhaseTimer()
-    prec = config.precision
-    theta, lam = config.grid.theta, config.grid.lam
-
     with timer.phase("ingest/vis"):
         data = load_vis_data(datfile)
     with timer.phase("ingest/wkern"):
-        wkerns, wbins = get_wkernels(wfile, theta)
-
-    n = n if n is not None else data.vis.shape[0]
-    if device_phases or dump_intermediates:
-        img, mx = _wproj_staged(
-            np.conj(np.asarray(wkerns, prec.np_complex)),
-            np.asarray(wbins, prec.np_real),
-            np.asarray(data.uvw[:n], prec.np_real),
-            np.asarray(data.frequency, prec.np_real),
-            np.asarray(data.vis[:n], prec.np_complex),
-            theta=theta, lam=lam, chunk=min(8192, max(256, n)),
-            timer=timer, dump_to=dump_intermediates,
-        )
-    else:
-        with timer.phase("h2d+compile+grid+fft"):
-            img, mx = _wproj_pipeline(
-                np.conj(np.asarray(wkerns, prec.np_complex)),
-                np.asarray(wbins, prec.np_real),
-                np.asarray(data.uvw[:n], prec.np_real),
-                np.asarray(data.frequency, prec.np_real),
-                np.asarray(data.vis[:n], prec.np_complex),
-                theta=theta,
-                lam=lam,
-                chunk=min(8192, max(256, n)),
-            )
-            # the blocking fetch belongs INSIDE the phase: jit dispatch is
-            # async, so without it the phase measures only trace/dispatch
-            img = np.asarray(img)
-            mx = float(mx)
-    img = np.asarray(img)
-    mx = float(mx)
-
-    if outfile is not None:
-        with timer.phase("write/img"):
-            h5.create_file(outfile)
-            h5.write_dataset(outfile, schema.IMG_DATASET, img.astype(np.float64))
+        wkerns, wbins = get_wkernels(wfile, config.grid.theta)
+    mx, img = w_image(data, wkerns, wbins, n=n, config=config, timer=timer,
+                      device_phases=device_phases,
+                      dump_intermediates=dump_intermediates)
+    _write_img(outfile, img, timer)
     return mx, img
 
 
 def _idg_staged(uvw, f, vis, *, theta, lam, subgrid, taper_beta, timer,
                 fov_pad=None):
-    """Stage-synchronized IDG pipeline: preprocess / bin / kernel+fold /
+    """Stage-synchronized IDG pipeline: preprocess / grid /
     hermitian+ifft+taper device times (cf. ``_idg_pipeline``; same
     ``fov_pad`` padded-FOV/crop semantics)."""
-    from functools import partial as _partial
-
-    from .. import kernels
-    from ..ops.idg import (fov_pad_finish, fov_pad_geometry, kaiser_taper,
-                           taper_fine)
-
     n, n_grid, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)
     timer.dispatch_floor()
 
-    @_partial(jax.jit, static_argnames=("theta", "lam"))
+    @partial(jax.jit, static_argnames=("theta", "lam"))
     def prep(uvw, f, vr, vi, *, theta, lam):
         uvw0 = uvw_lambda(f, uvw)
         wt = doweight(theta, lam, uvw0, jnp.ones_like(vr))
@@ -676,13 +690,19 @@ def _idg_staged(uvw, f, vis, *, theta, lam, subgrid, taper_beta, timer,
         return uvw1, jnp.real(vis1), jnp.imag(vis1)
 
     @jax.jit
+    def grid_stage(uvw1, vr1, vi1):
+        g = idg_grid_wproj(
+            (n_grid, n_grid), uvw1 / lam, uvw1[:, 2],
+            jax.lax.complex(vr1, vi1), theta=theta_g, subgrid=subgrid,
+            taper_beta=taper_beta,
+        )
+        return jnp.real(g), jnp.imag(g)
+
+    @jax.jit
     def image(g_re, g_im):
         g = jax.lax.complex(g_re, g_im)
         img = jnp.real(ifft_centered(make_grid_hermitian(g)))
-        tf = taper_fine(n_grid, subgrid, kaiser_taper(subgrid, taper_beta)
-                        ).astype(img.dtype)
-        img = img / (tf[:, None] * tf[None, :])
-        img = fov_pad_finish(img, n, n_grid, crop_lo)
+        img = _taper_correct(img, n, n_grid, crop_lo, subgrid, taper_beta)
         return img, jnp.max(img)
 
     vr = np.ascontiguousarray(np.asarray(vis).real)
@@ -690,42 +710,7 @@ def _idg_staged(uvw, f, vis, *, theta, lam, subgrid, taper_beta, timer,
     # weighting on the TARGET theta (fov_pad must not change weights)
     uvw1, vr1, vi1 = timer.device_stage(
         "preprocess", prep, uvw, f, vr, vi, theta=theta, lam=lam)
-
-    if kernels._resolved_impl() == "pallas":
-        from ..kernels.idg_pallas import idg_bin_records, \
-            idg_grid_from_records
-
-        @jax.jit
-        def bin_stage(uvw1, vr1, vi1):
-            return idg_bin_records(
-                (n_grid, n_grid), uvw1 / lam, uvw1[:, 2], vr1, vi1,
-                subgrid=subgrid,
-            )
-
-        @jax.jit
-        def kern_stage(recs, starts):
-            return idg_grid_from_records(
-                recs, starts, (n_grid, n_grid), theta=theta_g,
-                subgrid=subgrid, taper_beta=taper_beta,
-            )
-
-        recs, starts = timer.device_stage("bin+sort", bin_stage,
-                                          uvw1, vr1, vi1)
-        g_re, g_im = timer.device_stage("idg-kernel+fold", kern_stage,
-                                        recs, starts)
-    else:
-        @jax.jit
-        def grid_stage(uvw1, vr1, vi1):
-            g = kernels.idg_gridder(
-                (n_grid, n_grid), uvw1 / lam, uvw1[:, 2],
-                jax.lax.complex(vr1, vi1), theta=theta_g, subgrid=subgrid,
-                taper_beta=taper_beta,
-            )
-            return jnp.real(g), jnp.imag(g)
-
-        g_re, g_im = timer.device_stage("idg-grid", grid_stage,
-                                        uvw1, vr1, vi1)
-
+    g_re, g_im = timer.device_stage("idg-grid", grid_stage, uvw1, vr1, vi1)
     img, mx = timer.device_stage("hermitian+ifft+taper", image, g_re, g_im)
     return np.asarray(img), float(mx)
 
@@ -735,7 +720,7 @@ def _idg_staged(uvw, f, vis, *, theta, lam, subgrid, taper_beta, timer,
                           "fov_pad"))
 def _idg_pipeline(uvw, f, vis, *, theta, lam, subgrid, taper_beta,
                   fov_pad=None):
-    """Image-domain-gridding device program (MXU-native w-projection).
+    """Image-domain-gridding device program.
 
     Same step shape as ``_wproj_pipeline`` but the gridder is IDG (no
     kernel bank needed — the w screens are applied analytically) and the
@@ -747,23 +732,51 @@ def _idg_pipeline(uvw, f, vis, *, theta, lam, subgrid, taper_beta,
     measured radial error profile).  ``None`` images the plain FOV —
     quantifiably accurate inside ~75–87% of the image radius.
     """
-    from ..kernels import idg_gridder
-    from ..ops.idg import (fov_pad_finish, fov_pad_geometry, kaiser_taper,
-                           taper_fine)
-
     uvw0 = uvw_lambda(f, uvw)
     n, n_pad, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)
-    # target-FOV weighting histogram regardless of fov_pad (ADVICE r3)
+    # target-FOV weighting histogram regardless of fov_pad
     wt = doweight(theta, lam, uvw0, jnp.ones_like(vis))
     uvw1, vis1 = mirror_uvw(uvw0, vis)
-    guv = idg_gridder((n_pad, n_pad), uvw1 / lam, uvw1[:, 2], wt * vis1,
-                      theta=theta_g, subgrid=subgrid, taper_beta=taper_beta)
+    guv = idg_grid_wproj((n_pad, n_pad), uvw1 / lam, uvw1[:, 2], wt * vis1,
+                         theta=theta_g, subgrid=subgrid,
+                         taper_beta=taper_beta)
     img = jnp.real(ifft_centered(make_grid_hermitian(guv)))
-    tf = taper_fine(n_pad, subgrid, kaiser_taper(subgrid, taper_beta))
-    tf = tf.astype(img.dtype)
-    img = img / (tf[:, None] * tf[None, :])
-    img = fov_pad_finish(img, n, n_pad, crop_lo)
+    img = _taper_correct(img, n, n_pad, crop_lo, subgrid, taper_beta)
     return img, jnp.max(img)
+
+
+def idg_image(
+    data: VisData,
+    n: Optional[int] = None,
+    config: ImagingConfig = ImagingConfig(),
+    timer: Optional[PhaseTimer] = None,
+    subgrid: int = 64,
+    taper_beta: float = 12.0,
+    fov_pad: Optional[float] = None,
+    device_phases: bool = False,
+):
+    """Image-domain-gridding imaging of in-memory data (the array-level
+    half of :func:`idg_gridding`).  Returns (image max, image)."""
+    timer = timer or PhaseTimer()
+    prec = config.precision
+    theta, lam = config.grid.theta, config.grid.lam
+    n = n if n is not None else data.vis.shape[0]
+    args = (
+        np.asarray(data.uvw[:n], prec.np_real),
+        np.asarray(data.frequency, prec.np_real),
+        np.asarray(data.vis[:n], prec.np_complex),
+    )
+    kw = dict(theta=theta, lam=lam, subgrid=subgrid, taper_beta=taper_beta,
+              fov_pad=fov_pad)
+    if device_phases:
+        img, mx = _idg_staged(*args, timer=timer, **kw)
+        return mx, img
+    with timer.phase("h2d+compile+grid+fft"):
+        img, mx = _idg_pipeline(*args, **kw)
+        # blocking fetch inside the phase (async jit dispatch)
+        img = np.asarray(img)
+        mx = float(mx)
+    return mx, img
 
 
 def idg_gridding(
@@ -777,58 +790,29 @@ def idg_gridding(
     fov_pad: Optional[float] = None,
     device_phases: bool = False,
 ):
-    """Image-domain-gridding imaging run — the MXU-native w-projection
-    mode (PAPERS.md #1; ``ops/idg.py`` for the math and accuracy bounds).
-    Needs no w-kernel file: the screens the reference tabulates
-    (``src/Gridding.hs:651-667``) are applied analytically in the image
-    domain.  ``fov_pad`` < 1 buys a full-FOV accuracy guarantee by
-    gridding a padded FOV and cropping (``ops.idg.idg_fov_pad_plan``).
-    Returns (image max, image)."""
+    """Image-domain-gridding imaging run (PAPERS.md #1; ``ops/idg.py`` for
+    the math and accuracy bounds).  Needs no w-kernel file: the screens
+    the reference tabulates (``src/Gridding.hs:651-667``) are applied
+    analytically in the image domain.  ``fov_pad`` < 1 buys a full-FOV
+    accuracy guarantee by gridding a padded FOV and cropping
+    (``ops.idg.idg_fov_pad_plan``).  Returns (image max, image)."""
     timer = timer or PhaseTimer()
-    prec = config.precision
-    theta, lam = config.grid.theta, config.grid.lam
-
     with timer.phase("ingest/vis"):
         data = load_vis_data(datfile)
-    n = n if n is not None else data.vis.shape[0]
-    if device_phases:
-        img, mx = _idg_staged(
-            np.asarray(data.uvw[:n], prec.np_real),
-            np.asarray(data.frequency, prec.np_real),
-            np.asarray(data.vis[:n], prec.np_complex),
-            theta=theta, lam=lam, subgrid=subgrid, taper_beta=taper_beta,
-            timer=timer, fov_pad=fov_pad,
-        )
-    else:
-        with timer.phase("h2d+compile+grid+fft"):
-            img, mx = _idg_pipeline(
-                np.asarray(data.uvw[:n], prec.np_real),
-                np.asarray(data.frequency, prec.np_real),
-                np.asarray(data.vis[:n], prec.np_complex),
-                theta=theta, lam=lam, subgrid=subgrid, taper_beta=taper_beta,
-                fov_pad=fov_pad,
-            )
-            # blocking fetch inside the phase (async jit dispatch)
-            img = np.asarray(img)
-            mx = float(mx)
-    if outfile is not None:
-        with timer.phase("write/img"):
-            h5.create_file(outfile)
-            h5.write_dataset(outfile, schema.IMG_DATASET,
-                             img.astype(np.float64))
+    mx, img = idg_image(data, n=n, config=config, timer=timer,
+                        subgrid=subgrid, taper_beta=taper_beta,
+                        fov_pad=fov_pad, device_phases=device_phases)
+    _write_img(outfile, img, timer)
     return mx, img
 
 
 @partial(complex_safe_jit, static_argnames=("theta", "lam", "chunk"))
 def _predict_pipeline(wkerns, wbins, img, uvw, f, *, theta, lam, chunk):
     """Model image → uv-grid → per-visibility prediction (degridding)."""
-    from ..kernels import wproj_degridder
-    from ..ops import fft_centered
-
     uvw0 = uvw_lambda(f, uvw)
     grid = fft_centered(img.astype(wkerns.dtype))
     wbin = find_closest(wbins, uvw0[:, 2])
-    return wproj_degridder(wkerns, grid, uvw0 / lam, wbin, chunk=chunk)
+    return degrid_wproj(wkerns, grid, uvw0 / lam, wbin, chunk=chunk)
 
 
 @partial(complex_safe_jit,
@@ -841,21 +825,12 @@ def _idg_predict_pipeline(img, uvw, f, *, theta, lam, subgrid, taper_beta,
     ``fov_pad`` embeds the model in a padded FOV before the taper
     division (``fov_pad_start``), so predictions from edge sources carry
     the same bounded accuracy as the padded gridding direction
-    (VERDICT r3 #8: round-trip workflows no longer mix a padded forward
-    with an edge-degraded reverse)."""
-    from ..kernels import idg_degridder
-    from ..ops import fft_centered
-    from ..ops.idg import (fov_pad_geometry, fov_pad_start, kaiser_taper,
-                           taper_fine)
-
+    (round-trip workflows never mix a padded forward with an
+    edge-degraded reverse)."""
     uvw0 = uvw_lambda(f, uvw)
     n, n_grid, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)
-    imgp = fov_pad_start(img, n, n_grid, crop_lo)
-    tf = taper_fine(n_grid, subgrid, kaiser_taper(subgrid, taper_beta))
-    tf2 = (tf[:, None] * tf[None, :]).astype(img.dtype)
-    grid = fft_centered((imgp / tf2).astype(
-        jnp.complex64 if img.dtype == jnp.float32 else jnp.complex128))
-    return idg_degridder(
+    grid = _model_grid(img, n, n_grid, crop_lo, subgrid, taper_beta)
+    return idg_degrid_wproj(
         (n_grid, n_grid), uvw0 / lam, uvw0[:, 2], grid, theta=theta_g,
         subgrid=subgrid, taper_beta=taper_beta,
     )
@@ -874,23 +849,58 @@ def _aw_idg_predict_pipeline(screens, img, uvw, a1, a2, f, *, theta, lam,
     sample ``screens`` at the padded FOV's angular scale
     (``aw_screens_host(..., fov_scale=n_grid/n)``), mirroring the
     gridding direction."""
-    from ..kernels import idg_aw_degridder
-    from ..ops import fft_centered
-    from ..ops.idg import (fov_pad_geometry, fov_pad_start, kaiser_taper,
-                           taper_fine)
-
     uvw0 = uvw_lambda(f, uvw)
     n, n_grid, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)
-    imgp = fov_pad_start(img, n, n_grid, crop_lo)
-    tf = taper_fine(n_grid, subgrid, kaiser_taper(subgrid, taper_beta))
-    tf2 = (tf[:, None] * tf[None, :]).astype(img.dtype)
-    grid = fft_centered((imgp / tf2).astype(
-        jnp.complex64 if img.dtype == jnp.float32 else jnp.complex128))
-    return idg_aw_degridder(
+    grid = _model_grid(img, n, n_grid, crop_lo, subgrid, taper_beta)
+    return idg_degrid_aw(
         (n_grid, n_grid), uvw0 / lam, a1, a2, uvw0[:, 2], grid, screens,
         theta=theta_g, subgrid=subgrid, taper_beta=taper_beta,
         max_runs=max_runs,
     )
+
+
+def aw_predict_vis(
+    data: VisData,
+    akerns,
+    img,
+    n: Optional[int] = None,
+    config: ImagingConfig = ImagingConfig(),
+    timer: Optional[PhaseTimer] = None,
+    subgrid: int = 64,
+    taper_beta: float = 12.0,
+    fov_pad: Optional[float] = None,
+):
+    """IDG-AW prediction from an in-memory model image (the array-level
+    half of :func:`aw_predict`).  Drops are counted in
+    ``timer.counters["idg_aw/dropped"]`` and reported on stderr.
+    Returns the predicted visibilities."""
+    timer = timer or PhaseTimer()
+    prec = config.precision
+    theta, lam = config.grid.theta, config.grid.lam
+    n = n if n is not None else data.uvw.shape[0]
+    uvw = np.asarray(data.uvw[:n], prec.np_real)
+    f = np.asarray(data.frequency, prec.np_real)
+    a1 = np.asarray(data.antenna1[:n], np.int32)
+    a2 = np.asarray(data.antenna2[:n], np.int32)
+    with timer.phase("h2d+compile+fft+degrid"):
+        max_runs = idg_aw_max_runs(uvw, f, a1, a2, theta=theta, lam=lam,
+                                   subgrid=subgrid, fov_pad=fov_pad,
+                                   mirror=False)
+        screens = _aw_screens(akerns, theta, lam, subgrid, fov_pad, prec)
+        pred, nd = _aw_idg_predict_pipeline(
+            screens, np.asarray(img, prec.np_real), uvw, a1, a2, f,
+            theta=theta, lam=lam, subgrid=subgrid, taper_beta=taper_beta,
+            max_runs=max_runs, fov_pad=fov_pad,
+        )
+        pred = np.asarray(pred)
+        nd = int(nd)
+    if nd > 0:
+        print(f"warning: IDG-AW predict dropped {nd}/{n} visibilities "
+              f"({100.0 * nd / max(n, 1):.2f}%) — data not track-ordered "
+              "enough for pair-chunking (predictions are 0 there)",
+              file=sys.stderr)
+    timer.counters["idg_aw/dropped"] = float(nd)
+    return pred
 
 
 def aw_predict(
@@ -911,64 +921,47 @@ def aw_predict(
     surfaced like the gridding direction.  ``fov_pad`` embeds the model
     in a padded FOV (edge-accurate predictions; screens resampled at the
     padded scale).  Returns (pred, peak |vis|)."""
-    import sys
-
-    from ..ops.idg_aw import aw_screens_host
-
     timer = timer or PhaseTimer()
-    prec = config.precision
     theta, lam = config.grid.theta, config.grid.lam
     with timer.phase("ingest/vis"):
         data = load_vis_data(datfile)
     with timer.phase("ingest/akern"):
         akerns = get_akernels(afile, theta, float(data.time[0]),
                               data.frequency)
-    with timer.phase("ingest/model"):
-        img = np.asarray(h5.read_dataset(modelfile, schema.IMG_DATASET))
-    n_grid = int(round(theta * lam))
-    if img.shape != (n_grid, n_grid):
-        raise ValueError(
-            f"model image {img.shape} does not match grid "
-            f"({n_grid}, {n_grid}) for theta={theta}, lam={lam}"
-        )
-    n = n if n is not None else data.uvw.shape[0]
-    a1 = np.asarray(data.antenna1[:n], np.int64)
-    a2 = np.asarray(data.antenna2[:n], np.int64)
-    nant_b = int(max(a1.max(initial=0), a2.max(initial=0))) + 2
-    npair = len(np.unique(a1 * nant_b + a2))
-    max_runs = 8 * npair + n // 128 + 64
-    with timer.phase("h2d+compile+fft+degrid"):
-        from ..ops.idg import fov_pad_geometry
+    img = _read_model(modelfile, theta, lam, timer)
+    pred = aw_predict_vis(data, akerns, img, n=n, config=config, timer=timer,
+                          subgrid=subgrid, taper_beta=taper_beta,
+                          fov_pad=fov_pad)
+    peak = float(np.abs(pred).max()) if pred.size else 0.0
+    _write_model_vis(outfile, pred, timer)
+    return pred, peak
 
-        n_t, n_g, _, _ = fov_pad_geometry(theta, lam, fov_pad)
-        screens = aw_screens_host(
-            np.asarray(akerns, prec.np_complex), subgrid,
-            fov_scale=n_g / n_t,
-        ).astype(prec.np_complex)
-        pred, nd = _aw_idg_predict_pipeline(
-            screens,
+
+def idg_predict_vis(
+    data: VisData,
+    img,
+    n: Optional[int] = None,
+    config: ImagingConfig = ImagingConfig(),
+    timer: Optional[PhaseTimer] = None,
+    subgrid: int = 32,
+    taper_beta: float = 12.0,
+    fov_pad: Optional[float] = None,
+):
+    """IDG prediction from an in-memory model image (the array-level
+    half of :func:`idg_predict`).  Returns the predicted visibilities."""
+    timer = timer or PhaseTimer()
+    prec = config.precision
+    theta, lam = config.grid.theta, config.grid.lam
+    n = n if n is not None else data.uvw.shape[0]
+    with timer.phase("h2d+compile+fft+degrid"):
+        pred = _idg_predict_pipeline(
             np.asarray(img, prec.np_real),
             np.asarray(data.uvw[:n], prec.np_real),
-            a1.astype(np.int32), a2.astype(np.int32),
             np.asarray(data.frequency, prec.np_real),
             theta=theta, lam=lam, subgrid=subgrid, taper_beta=taper_beta,
-            max_runs=max_runs, fov_pad=fov_pad,
+            fov_pad=fov_pad,
         )
-        pred = np.asarray(pred)
-        nd = int(nd)
-    if nd > 0:
-        print(f"warning: IDG-AW predict dropped {nd}/{n} visibilities "
-              f"({100.0 * nd / max(n, 1):.2f}%) — data not track-ordered "
-              "enough for pair-chunking (predictions are 0 there)",
-              file=sys.stderr)
-    timer.counters["idg_aw/dropped"] = float(nd)
-    peak = float(np.abs(pred).max()) if pred.size else 0.0
-    if outfile is not None:
-        with timer.phase("write/vis"):
-            h5.create_file(outfile)
-            h5.write_dataset(outfile, "/vis/model",
-                             pred.astype(np.complex128))
-    return pred, peak
+        return np.asarray(pred)
 
 
 def idg_predict(
@@ -987,35 +980,46 @@ def idg_predict(
     ``fov_pad`` embeds the model in a padded FOV for edge-accurate
     predictions.  Returns (predicted ndarray, peak |vis|)."""
     timer = timer or PhaseTimer()
-    prec = config.precision
     theta, lam = config.grid.theta, config.grid.lam
     with timer.phase("ingest/vis"):
         data = load_vis_data(datfile)
-    with timer.phase("ingest/model"):
-        img = np.asarray(h5.read_dataset(modelfile, schema.IMG_DATASET))
-    n_grid = int(round(theta * lam))
-    if img.shape != (n_grid, n_grid):
-        raise ValueError(
-            f"model image {img.shape} does not match grid "
-            f"({n_grid}, {n_grid}) for theta={theta}, lam={lam}"
-        )
+    img = _read_model(modelfile, theta, lam, timer)
+    pred = idg_predict_vis(data, img, n=n, config=config, timer=timer,
+                           subgrid=subgrid, taper_beta=taper_beta,
+                           fov_pad=fov_pad)
+    peak = float(np.abs(pred).max()) if pred.size else 0.0
+    _write_model_vis(outfile, pred, timer)
+    return pred, peak
+
+
+def w_predict_vis(
+    data: VisData,
+    wkerns,
+    wbins,
+    img,
+    n: Optional[int] = None,
+    config: ImagingConfig = ImagingConfig(),
+    timer: Optional[PhaseTimer] = None,
+):
+    """w-projection prediction from an in-memory model image (the
+    array-level half of :func:`w_predict`).  Returns the predicted
+    visibilities."""
+    timer = timer or PhaseTimer()
+    prec = config.precision
+    theta, lam = config.grid.theta, config.grid.lam
     n = n if n is not None else data.uvw.shape[0]
     with timer.phase("h2d+compile+fft+degrid"):
-        pred = _idg_predict_pipeline(
+        pred = _predict_pipeline(
+            np.asarray(wkerns, prec.np_complex),
+            np.asarray(wbins, prec.np_real),
             np.asarray(img, prec.np_real),
             np.asarray(data.uvw[:n], prec.np_real),
             np.asarray(data.frequency, prec.np_real),
-            theta=theta, lam=lam, subgrid=subgrid, taper_beta=taper_beta,
-            fov_pad=fov_pad,
+            theta=theta,
+            lam=lam,
+            chunk=min(8192, max(256, n)),
         )
-        pred = np.asarray(pred)
-    peak = float(np.abs(pred).max()) if pred.size else 0.0
-    if outfile is not None:
-        with timer.phase("write/vis"):
-            h5.create_file(outfile)
-            h5.write_dataset(outfile, "/vis/model",
-                             pred.astype(np.complex128))
-    return pred, peak
+        return np.asarray(pred)
 
 
 def w_predict(
@@ -1038,52 +1042,25 @@ def w_predict(
     Returns (predicted ndarray, peak |vis|).
     """
     timer = timer or PhaseTimer()
-    prec = config.precision
     theta, lam = config.grid.theta, config.grid.lam
-
     with timer.phase("ingest/vis"):
         data = load_vis_data(datfile)
     with timer.phase("ingest/wkern"):
         wkerns, wbins = get_wkernels(wfile, theta)
-    with timer.phase("ingest/model"):
-        img = np.asarray(h5.read_dataset(modelfile, schema.IMG_DATASET))
-    n_grid = int(round(theta * lam))
-    if img.shape != (n_grid, n_grid):
-        raise ValueError(
-            f"model image {img.shape} does not match grid "
-            f"({n_grid}, {n_grid}) for theta={theta}, lam={lam}"
-        )
-
-    n = n if n is not None else data.uvw.shape[0]
-    with timer.phase("h2d+compile+fft+degrid"):
-        pred = _predict_pipeline(
-            np.asarray(wkerns, prec.np_complex),
-            np.asarray(wbins, prec.np_real),
-            np.asarray(img, prec.np_real),
-            np.asarray(data.uvw[:n], prec.np_real),
-            np.asarray(data.frequency, prec.np_real),
-            theta=theta,
-            lam=lam,
-            chunk=min(8192, max(256, n)),
-        )
-        pred = np.asarray(pred)
-
-    if outfile is not None:
-        with timer.phase("write/model-vis"):
-            h5.create_file(outfile)
-            h5.write_dataset(outfile, "/vis/model",
-                             pred.astype(np.complex128))
+    img = _read_model(modelfile, theta, lam, timer)
+    pred = w_predict_vis(data, wkerns, wbins, img, n=n, config=config,
+                         timer=timer)
+    _write_model_vis(outfile, pred, timer, phase="write/model-vis")
     return pred, float(np.abs(pred).max())
 
 
 @partial(complex_safe_jit, static_argnames=("theta", "lam", "chunk"))
 def _wgrid_slab(bank_conj, wbins, uvw_l, wt, vis, grid, *, theta, lam, chunk):
     """Grid one visibility slab into the running uv-grid (resumable)."""
-    n = int(round(theta * lam))
     uvw1, vis1 = mirror_uvw(uvw_l, vis)
     wbin = find_closest(wbins, uvw1[:, 2])
-    return wproj_gridder(bank_conj, (n, n), uvw1 / lam, wbin,
-                         wt.astype(vis.dtype) * vis1, chunk=chunk, init=grid)
+    return convgrid_wproj(bank_conj, grid, uvw1 / lam, wbin,
+                          wt.astype(vis.dtype) * vis1, chunk=chunk)
 
 
 @partial(complex_safe_jit, static_argnames=())
@@ -1138,7 +1115,7 @@ def w_gridding_checkpointed(
     ).real.astype(prec.np_real)
 
     # run-defining config: resuming under a different bank/precision/θλ
-    # must reject the checkpoint, not mix numerics (ADVICE r1)
+    # must reject the checkpoint, not mix numerics
     fpr = ckpt.fingerprint(theta, lam, wkerns.shape, str(prec.np_real), "wproj")
     state = ckpt.load(checkpoint, n_grid, n, fpr=fpr)
     if state is not None:

@@ -84,7 +84,7 @@ def w_cache_imaging(
     Note: with an explicit ``w_range`` that does not cover the data, w
     values outside it are silently clipped into the edge bins (the jnp.clip
     below) — numerically degraded, not an error.  Choose ``w_range`` from
-    the dataset's true w extent (ADVICE r2).
+    the dataset's true w extent.
     """
     import numpy as np
 
@@ -109,10 +109,10 @@ def w_cache_imaging(
 
     real_dt = jnp.real(vis).dtype
     bank = w_kernel_bank(theta, centers.astype(real_dt), opts, dtype=real_dt)
-    from ..kernels import wproj_gridder
+    from ..ops import convgrid_wproj
 
-    n = int(round(theta * lam))
-    return wproj_gridder(bank, (n, n), uvw / lam, wbin, vis, chunk=chunk)
+    guv = _empty_grid(theta, lam, vis.dtype)
+    return convgrid_wproj(bank, guv, uvw / lam, wbin, vis, chunk=chunk)
 
 
 def wproj_imaging_from_bank(
@@ -123,11 +123,11 @@ def wproj_imaging_from_bank(
     The per-visibility bin is the closest center in w (reference
     ``findClosest`` use at Gridding.hs:474).
     """
-    from ..kernels import wproj_gridder
+    from ..ops import convgrid_wproj
 
     wbin = find_closest(wbin_centers, uvw[:, 2])
-    n = int(round(theta * lam))
-    return wproj_gridder(bank, (n, n), uvw / lam, wbin, vis, chunk=chunk)
+    guv = _empty_grid(theta, lam, vis.dtype)
+    return convgrid_wproj(bank, guv, uvw / lam, wbin, vis, chunk=chunk)
 
 
 def aw_imaging(
@@ -140,7 +140,6 @@ def aw_imaging(
     src,
     vis,
     chunk: int = 8192,
-    slab: int = 1 << 16,
 ):
     """AW-projection imaging (ref ``aw_imaging`` Gridding.hs:452-478).
 
@@ -155,11 +154,10 @@ def aw_imaging(
     a1, a2 = src[0].astype(jnp.int32), src[1].astype(jnp.int32)
     guv = _empty_grid(theta, lam, vis.dtype)
     wbin = find_closest(wbin_centers, uvw[:, 2])
-    from ..kernels import aw_gridder
+    from ..ops import convgrid_aw
 
-    return aw_gridder(
+    return convgrid_aw(
         wkernels, akernels, guv, uvw / lam, wbin, a1, a2, vis, chunk=chunk,
-        slab=slab,
     )
 
 

@@ -8,7 +8,7 @@ Reference semantics (``/root/reference/src/Gridding.hs:761-811``):
                          scale by m².
   ``aw_kernel_fn2``    — aw = convolve2d(convolve2d(a1, a2), wkern[yf, xf]).
 
-TPU-native redesign: the reference computes this *per visibility inside a
+Batched redesign: the reference computes this *per visibility inside a
 sequential device loop* (``src/Gridding.hs:348-356``) — two fresh FFT
 convolutions per visibility.  Here every stage is batched:
 
@@ -34,12 +34,11 @@ import numpy as np
 
 from .fourier import extract_mid, next_pow2, pad_mid
 
-# Batched FFTs of tiny transforms are slow on TPU (XLA's FFT is not
-# MXU-mapped at these sizes: measured 0.76M 32² transforms/s on v5e).  For
-# the small centered transforms of the AW path we instead materialize the
-# composite linear maps (pad∘shift∘DFT and DFT∘shift∘extract) as dense
-# (m, s)/(n, m) matrices and evaluate them as F · X · Fᵀ batched matmuls on
-# the MXU.  Exact — same operator, different factorization.
+# For the small centered transforms of the AW path (m ≤ 128) we
+# materialize the composite linear maps (pad∘shift∘DFT and
+# DFT∘shift∘extract) as dense (m, s)/(n, m) matrices and evaluate them as
+# F · X · Fᵀ batched matmuls instead of batches of tiny FFTs.  Exact — same
+# operator, different factorization.
 _MM_MAX = 128   # use the matmul path for transforms up to this size
 
 
@@ -63,7 +62,7 @@ def _synthesis_mat(n: int, m: int):
 
 
 def _sandwich(M, x):
-    """M @ x @ M.T batched over leading axes of x (two MXU matmuls)."""
+    """M @ x @ M.T batched over leading axes of x (two matmuls)."""
     M = jnp.asarray(M, dtype=jnp.result_type(x, jnp.complex64))
     hp = __import__("jax").lax.Precision.HIGHEST
     t = jnp.einsum("ms,...st->...mt", M, x, precision=hp)
@@ -120,7 +119,7 @@ def aw_kernel(a1_kern, a2_kern, w_tap):
 
 
 # ---------------------------------------------------------------------------
-# Batched AW-kernel construction with precomputed spectra (the TPU fast path)
+# Batched AW-kernel construction with precomputed spectra
 # ---------------------------------------------------------------------------
 
 def akernel_spectra(akerns):

@@ -1,6 +1,6 @@
 """uv→grid coordinate mapping and uvw preprocessing.
 
-TPU-native re-design of the reference's coordinate machinery
+Batched re-design of the reference's coordinate machinery
 (``/root/reference/src/Gridding.hs:111-151`` ``frac_coord``/``frac_coords``/
 ``toGridCell``, ``:551-562`` ``mirror_uvw``, ``src/ImageDataset.hs:181-187``
 ``uvw_lambda``).  Everything is expressed as batched jnp ops over the full
@@ -31,6 +31,15 @@ def frac_coord(n, qpx, p):
         cell  = floor(x + 0.5/qpx)
         frac  = round((x - cell) * qpx)     -- in [0, qpx-1]
 
+    Computed as k = n/2·qpx + round(p·n·qpx), cell = k // qpx,
+    frac = k mod qpx — the same cell and fraction (cell·qpx + frac is x·qpx
+    rounded) except at exact .5 ties.  The position comes from ONE
+    multiply and integer arithmetic follows: there is no multiply-add a
+    compiler could contract into an FMA, so the GPU and the CPU pick the
+    same kernel tap for the same p (with ``halfn + p*n`` they disagreed
+    for records within an ulp of a tap boundary), and the rounding error
+    is that of p·n·qpx alone.
+
     Args:
       n: grid extent along this axis (static int).
       qpx: oversampling factor (static int).
@@ -39,12 +48,8 @@ def frac_coord(n, qpx, p):
     Returns:
       (cell, frac) int32 arrays of p's shape.
     """
-    halfn = n // 2
-    x = halfn + p * n
-    qpxfrac = 0.5 / qpx
-    cell = jnp.floor(x + qpxfrac)
-    frac = jnp.round((x - cell) * qpx)
-    return cell.astype(jnp.int32), frac.astype(jnp.int32)
+    k = jnp.round(p * (n * qpx)).astype(jnp.int32) + (n // 2) * qpx
+    return k // qpx, k % qpx
 
 
 def frac_coords(shape_hw, qpx, p_uvw):

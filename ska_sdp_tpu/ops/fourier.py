@@ -1,9 +1,9 @@
 """Centered FFT wrappers, padding and extraction.
 
-TPU-native analog of the reference's FFT section
+Analog of the reference's FFT section
 (``/root/reference/src/Gridding.hs:682-728, 815-834``): fftshift-sandwiched
 2-D transforms plus the ``pad_mid`` / ``extract_mid`` center-crop pair used by
-kernel synthesis.  Backed by ``jnp.fft`` (XLA FFT on TPU); unlike the
+kernel synthesis.  Backed by ``jnp.fft`` (XLA's FFT); unlike the
 reference we do NOT need to pad to powers of two for correctness — XLA handles
 arbitrary sizes — but `convolve2d` still rounds up to a power of two because
 small pow2 FFTs batch beautifully and it keeps parity with reference scaling.
@@ -79,7 +79,7 @@ def fft_pow2(img):
 
     Parity with the reference's ``fft`` (``src/Gridding.hs:821-826``), which
     pads to 2^⌈log2 n⌉ before transforming and extracts the original size.
-    On TPU, XLA's FFT handles arbitrary smooth sizes, so :func:`fft_centered`
+    XLA's FFT handles arbitrary smooth sizes, so :func:`fft_centered`
     is the production path; this variant exists for bit-level parity with
     reference outputs.
     """

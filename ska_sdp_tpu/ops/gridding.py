@@ -10,14 +10,13 @@ gridder family (``/root/reference/src/Gridding.hs:95-396``):
   ``degrid_wproj``    — adjoint gather (grid → predicted vis); absent from the
                         reference but required by the driver configs.
 
-Design notes (TPU-first):
+Design notes:
 
 * The reference's single load-bearing parallel primitive is Accelerate's
-  combining ``permute (+)`` scatter.  XLA's ``.at[].add`` provides the same
-  combining-scatter semantics; collisions are resolved deterministically by
-  the TPU scatter implementation.  The Pallas tile-privatized kernel in
-  ``ska_sdp_tpu.kernels`` is the performance path; this module is the
-  always-correct oracle-adjacent path and the small-problem path.
+  combining ``permute (+)`` scatter, which its GPU backend compiles to an
+  atomic scatter.  XLA's ``.at[].add`` provides the same combining-scatter
+  semantics and lowers to atomic adds on the GPU, so collisions sum in a
+  run-dependent order (float32 results agree to rounding, not bitwise).
 * The reference iterates visibilities *sequentially* on-device for the AW
   path (``afor`` :848-860).  Here every per-visibility quantity is a batched
   gather, and memory is bounded by chunking the visibility axis with

@@ -7,7 +7,7 @@ off-center, so the mirror is ``g[n-y, n-x]`` with row 0 and column 0 of the
 mirror zeroed; for odd sizes it is a plain full reversal.
 
 Implemented with pure ``jnp.roll``/``flip`` data movement — no gathers — which
-XLA lowers to cheap HBM copies on TPU.
+XLA lowers to plain device-memory copies.
 """
 
 from __future__ import annotations

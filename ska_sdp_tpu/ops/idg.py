@@ -1,10 +1,10 @@
-"""Image-domain gridding (IDG): w-projection as batched MXU matmuls.
+"""Image-domain gridding (IDG): w-projection as batched matmuls.
 
 An alternative gridding algorithm for the reference's w-projection
 semantics (``/root/reference/src/Gridding.hs:199-244`` + the kernel screen
-of ``:651-667``), designed for the TPU's systolic array instead of the
-VPU-bound scatter (PAPERS.md #1, van der Tol et al. 2018 — method only; the
-realization here is original TPU-first engineering):
+of ``:651-667``) that turns the scatter into dense matrix products
+(PAPERS.md #1, van der Tol et al. 2018 — method only; the realization here
+is this repo's own):
 
 The uv-plane is tiled into overlapping **subgrids** (size ``S``, stride
 ``T``).  Each visibility's kernel support fits inside one subgrid, so its
@@ -17,7 +17,7 @@ FFT turns gridding into
     subgrid  = F · a · Fᵀ                              — DFT sandwich,
     master grid += overlap-add of subgrids             — dense fold,
 
-i.e. ~2·S² complex MACs per visibility on the MXU, ~zero scatter.  Three
+i.e. ~2·S² complex MACs per visibility in matmuls, ~zero scatter.  Three
 properties versus the exact oversampled-bank scatter:
 
 * **No oversampling quantization** — the phase factors place each
@@ -61,8 +61,8 @@ from .coords import frac_coord
 
 
 def _spread_i32(vals_at_starts, starts, n_pad):
-    """Per-slot broadcast of per-segment values (boundary-scatter+cumsum —
-    searchsorted/gathers over n_pad run far below HBM bandwidth, BENCH.md)."""
+    """Per-slot broadcast of per-segment values (boundary scatter +
+    cumsum instead of a searchsorted/gather over n_pad)."""
     buf = jnp.zeros((n_pad,), jnp.int32)
     deltas = vals_at_starts - jnp.concatenate(
         [jnp.zeros((1,), jnp.int32), vals_at_starts[:-1]]
@@ -129,19 +129,22 @@ def _bin_chunk_records(grid_shape, p, w, subgrid: int, chunk: int,
     geometry (S, T, PADM, nty, ntx, n_sub, n_pad, n_chunks_max)).
 
     Non-square grids are supported: subgrid tiling, assignment and
-    positions are per-axis (VERDICT r2 #4 — the bank path always was)."""
+    positions are per-axis."""
     N, Nx = grid_shape
     S, T = subgrid, subgrid // 2
     s = support
-    assert s <= T + 1, "support exceeds subgrid overlap"
+    if s > T + 1:
+        raise ValueError(
+            f"IDG needs support <= subgrid/2+1; got s={s}, S={S} — use a "
+            "larger subgrid")
     PADM = T
     nty = -(-(N + 2 * PADM) // T) + 1
     ntx = -(-(Nx + 2 * PADM) // T) + 1
     n_sub = nty * ntx
     n = p.shape[0]
 
-    # assignment: anchor = top-left of the support, like the exact path's
-    # y0 (``kernels/wproj_pallas._preprocess``)
+    # assignment: anchor = top-left of the support, like the bank
+    # gridder's patch origin y0 (``ops.gridding.convgrid_wproj``)
     yc, _ = frac_coord(N, 1, p[:, 1])
     xc, _ = frac_coord(Nx, 1, p[:, 0])
     y0 = yc - s // 2
@@ -193,11 +196,10 @@ def _bin_chunk_records(grid_shape, p, w, subgrid: int, chunk: int,
 
 
 def idg_fov_pad_plan(N: int, fov_fraction: float):
-    """Padded-FOV plan for full-FOV-accurate IDG imaging (VERDICT r2 #6).
+    """Padded-FOV plan for full-FOV-accurate IDG imaging.
 
     The taper division amplifies error toward the image edge: measured on
-    the direct-DFT truth (``experiments/idg_fov_sweep.py``, max-norm
-    radius bands, S=64, β=12):
+    the direct-DFT truth (max-norm radius bands, S=64, β=12):
 
         r ≤ 0.75 : ≤ 5e-5      0.75–0.875 : ~7e-4
         0.875–0.95 : ~1e-2     r > 0.95   : O(0.3) — unusable
@@ -257,8 +259,8 @@ def _dft_matrix(S: int, dtype):
     """Centered forward DFT matrix: F[y, q] = e^{-2πi (y-S/2)(q-S/2)/S}.
 
     Phases are built at the precision the target dtype implies so the
-    complex128 oracle path is not capped at f32 phase accuracy
-    (ADVICE r2): f64 phases for complex128 (when x64 is enabled)."""
+    complex128 oracle path is not capped at f32 phase accuracy: f64
+    phases for complex128 (when x64 is enabled)."""
     ftype = jnp.float64 if dtype == jnp.complex128 else jnp.float32
     k = jnp.arange(S, dtype=ftype) - S // 2
     ph = -2.0 * jnp.pi * jnp.outer(k, k) / S
@@ -267,8 +269,7 @@ def _dft_matrix(S: int, dtype):
 
 def _fold_overlap(blocks, nty: int, ntx: int, S: int, T: int):
     """Overlap-add subgrid blocks (stride T, size S = 2T) into the padded
-    grid — four dense reshape-adds, the IDG analog of the scatter-free
-    halo fold in ``kernels/wproj_pallas._fold_tiles``."""
+    grid — four dense reshape-adds, no scatter."""
     assert S == 2 * T
     core = blocks[:, :, :T, :T]
     right = blocks[:, :, :T, T:]
@@ -378,7 +379,7 @@ def idg_grid_wproj(grid_shape, p, w, vis, *, theta: float,
         sub_imgs = sub_imgs * (t1[None, :, None] * t1[None, None, :]
                                ).astype(cdt)
 
-    # ---- subgrid uv patches: centered DFT sandwich (MXU) and overlap-add
+    # ---- subgrid uv patches: centered DFT sandwich (matmuls), overlap-add
     patches = jnp.einsum("yq,sqr,xr->syx", F, sub_imgs, F,
                          preferred_element_type=cdt,
                          precision=jax.lax.Precision.HIGHEST)

@@ -1,6 +1,6 @@
 """Experimental reduced-precision numerics for gridding.
 
-TPU-native counterpart of the reference's disconnected Posit16 experiment
+Counterpart of the reference's disconnected Posit16 experiment
 (``/root/reference/src/POSIT.hs`` — SURVEY §2 C14: bit-level Posit16↔IEEE
 conversions written as device expressions, exploring reduced precision for
 gridding; not wired into any pipeline).
@@ -8,11 +8,11 @@ gridding; not wired into any pipeline).
 This module provides:
 
 * a vectorized **posit(16,1)** codec written entirely in jnp int32 bit ops
-  (so it runs on TPU/CPU under jit) — :func:`p16_to_f32` / :func:`f32_to_p16`
+  (so it runs on any backend under jit) — :func:`p16_to_f32` / :func:`f32_to_p16`
   with the standard zero/NaR conventions, two's-complement negatives,
   regime/exponent/fraction decoding and round-to-nearest-even encoding that
   never rounds a nonzero value to zero or NaR;
-* the TPU-relevant quantizers — **bfloat16** and (where the jax build has
+* the accelerator low formats — **bfloat16** and (where the jax build has
   them) **float8** — applied to complex visibility/kernel data;
 * :func:`gridding_quantization_error`, a small study harness measuring the
   dirty-grid RMS error introduced by each format, the question the
@@ -121,7 +121,7 @@ def quantize_posit16(x):
 
 
 def quantize_bf16(x):
-    """Round real/complex data through bfloat16 (the TPU-native low format)."""
+    """Round real/complex data through bfloat16 (the tensor-core low format)."""
     x = jnp.asarray(x)
     if jnp.issubdtype(x.dtype, jnp.complexfloating):
         return jax.lax.complex(

@@ -5,7 +5,7 @@ device-side binary search returning the index of the closest element of a
 sorted vector, with ties broken toward the *larger* index (the reference's
 final comparison is strict ``<``).
 
-TPU-native design: ``jnp.searchsorted`` (O(log n) vectorised binary search in
+Design: ``jnp.searchsorted`` (O(log n) vectorised binary search in
 XLA) + a neighbour comparison — fully batched over the visibility vector, no
 while-loops to trace.
 """

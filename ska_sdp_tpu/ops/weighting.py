@@ -4,7 +4,7 @@ Reference ``doweight`` (``/root/reference/src/Gridding.hs:564-583``): count how
 many visibilities land in each grid cell (at qpx=1 resolution) and divide each
 visibility by its own cell's count.
 
-TPU-native design: instead of materialising the full N×N occupancy grid and a
+Design: instead of materialising the full N×N occupancy grid and a
 scatter + gather round-trip, we compute per-visibility counts directly with a
 sort-free ``segment``-style trick on the *linearised* cell id — one
 ``.at[].add`` scatter into a length-N² histogram would also work, but for the

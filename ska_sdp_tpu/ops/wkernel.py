@@ -1,6 +1,6 @@
 """w-kernel synthesis: phase screen → oversampled gridding kernel.
 
-TPU-native rebuild of the reference's kernel-generation section
+Batched rebuild of the reference's kernel-generation section
 (``/root/reference/src/Gridding.hs:610-728``):
 
   ``w_kernel``       — compose the stages below                 (:610-619)

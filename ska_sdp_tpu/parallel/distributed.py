@@ -1,10 +1,11 @@
 """Multi-host initialization and hierarchical meshes.
 
 The reference is single-process (SURVEY §5: no MPI/NCCL/sockets anywhere).
-The TPU framework scales across hosts with ``jax.distributed``: every host
+The framework scales across hosts with ``jax.distributed``: every host
 runs the same program, arrays are globally sharded over a ("host", "vis")
 mesh, and the partial-grid reduction composes hierarchically — psum segments
-ride ICI within a slice and DCN across slices, scheduled by XLA.
+ride the intra-host interconnect, then the network across hosts, scheduled
+by XLA.
 
 On a single machine this module is exercised via
 ``xla_force_host_platform_device_count`` (see ``tests/test_parallel.py`` and

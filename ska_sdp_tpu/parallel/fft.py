@@ -2,7 +2,7 @@
 
 The reference's FFTs are single-device (accelerate-fft wrappers —
 ``/root/reference/src/Gridding.hs:815-834``).  For grids that outgrow one
-chip (SURVEY §5: grid size n = θ·λ), this module implements the TPU-native
+device (SURVEY §5: grid size n = θ·λ), this module implements a
 pencil-decomposition transform under ``shard_map``:
 
 * the grid is **row-sharded** over a 1-D mesh axis;

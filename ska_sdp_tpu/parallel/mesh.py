@@ -1,17 +1,17 @@
 """Device-mesh construction and sharding policy.
 
 The reference has no model/multi-process parallelism (SURVEY §2, parallelism
-inventory) — its scaling story ends at one GPU.  The TPU-native scale-out
-design (SURVEY §5 "Distributed communication backend"):
+inventory) — its scaling story ends at one GPU.  The scale-out design here
+(SURVEY §5 "Distributed communication backend"):
 
-* mesh axes: ``("vis",)`` on a single host/slice — visibilities are the data
-  axis, sharded over chips by baseline blocks; grows to ``("host", "vis")``
-  across pod slices where the partial-grid reduction is hierarchical (psum
-  over ICI within a slice, then across DCN).
+* mesh axes: ``("vis",)`` on a single host — visibilities are the data
+  axis, sharded over devices by baseline blocks; grows to
+  ``("host", "vis")`` across hosts, where the partial-grid reduction is
+  hierarchical (psum within a host, then across the network).
 * the uv-grid is small (2400² complex64 = 46 MB) relative to HBM, so each
   chip accumulates a private partial grid and the merge is one ``psum`` —
   the classic "grid-parallelism" layout for scatter-heavy workloads.
-* kernel banks are replicated (a few MB; VMEM/HBM resident per chip).
+* kernel banks are replicated (a few MB in each device's memory).
 """
 
 from __future__ import annotations

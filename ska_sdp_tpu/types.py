@@ -1,15 +1,14 @@
-"""Type vocabulary and precision policy for the TPU gridding framework.
+"""Type vocabulary and precision policy for the gridding framework.
 
 Plays the role of the reference's central type-alias module
 (``/root/reference/src/Types.hs:1-28``): the reference fixes ``F = Double`` and
-``Visibility = Complex Double``.  TPUs have no fast fp64, so instead of a single
-hardwired scalar type we carry an explicit :class:`Precision` policy through the
-pipelines:
+``Visibility = Complex Double``.  Accelerators run fp64 far slower than
+fp32, so instead of a single hardwired scalar type we carry an explicit
+:class:`Precision` policy through the pipelines:
 
-* ``single`` — float32 / complex64: the TPU production configuration.  The
-  scatter-accumulation error is controlled structurally (per-tile privatized
-  accumulation sums only a few thousand values per cell) rather than by wider
-  arithmetic.
+* ``single`` — float32 / complex64: the production configuration.  The
+  scatter accumulates each cell in float32; the few thousand contributions a
+  cell receives keep the rounding error near 1e-6 relative.
 * ``double`` — float64 / complex128: the parity/oracle configuration, used on
   CPU (with ``jax_enable_x64``) to reproduce the reference numerics exactly.
 

@@ -15,8 +15,8 @@ numerics into the accumulated grid, so a mismatch rejects the checkpoint
 with a logged warning instead of a silent restart-from-zero.
 
 Layout: ``/ckpt/grid_re``, ``/ckpt/grid_im`` ([n, n] at the RUN's real
-precision — float32 runs write float32 slabs, halving checkpoint I/O;
-VERDICT r2 #10), ``/ckpt/next`` (float64 [1] — visibilities already
+precision — float32 runs write float32 slabs, halving checkpoint I/O),
+``/ckpt/next`` (float64 [1] — visibilities already
 gridded), ``/ckpt/total`` (float64 [1]), ``/ckpt/fpr`` (float64 [1] —
 fingerprint; the fingerprint includes the precision, so a resume under a
 different precision is rejected rather than silently cast).

@@ -4,7 +4,7 @@ Plays the role the Accelerate *interpreter backend* plays in the reference's
 test strategy (SURVEY §4: ``I.run`` is the oracle against which the compiled
 backends are compared; see also the miscompile repro preserved in
 ``/root/reference/old/BrokenNumbers.hs``).  Everything here is written with
-explicit Python loops / numpy in float64 — no JAX — so that the TPU paths can
+explicit Python loops / numpy in float64 — no JAX — so that the JAX paths can
 be diffed against genuinely independent code.
 """
 

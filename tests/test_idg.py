@@ -1,5 +1,5 @@
-"""Image-domain gridding: accuracy vs ground truth, the exact scatter
-path, and the Pallas kernel vs the XLA realization.
+"""Image-domain gridding: accuracy vs ground truth and vs the exact
+scatter path.
 
 IDG approximates the same imaging operator as the oversampled-bank
 scatter (reference screen semantics, ``/root/reference/src/Gridding.hs:
@@ -11,7 +11,7 @@ Its accuracy is verified three ways:
 2. against the exact scatter path gridding the SAME tapered-screen bank
    on oversample-lattice positions (methods differ only in realization)
    — ~1e-4;
-3. Pallas kernel vs the XLA IDG path — ~1e-6 (same algorithm).
+3. through the grid/degrid dot-product identity (exact adjoints).
 
 Versus the PLAIN reference bank the difference is bounded by the bank's
 own truncation (untapered Dirichlet tails) + qpx quantization — that
@@ -223,78 +223,8 @@ class TestIDGDegrid:
         assert abs(v[1]) > 0
 
 
-class TestIDGPallas:
-    def test_matches_xla_idg(self, rng):
-        from ska_sdp_tpu.kernels.idg_pallas import idg_gridder_pallas
-
-        p, w, vis = _problem(rng, b=400)
-        g_x = idg_grid_wproj(
-            (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(vis),
-            theta=THETA,
-        )
-        g_p = idg_gridder_pallas(
-            (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(vis),
-            theta=THETA, subgrid=32, interpret=True,
-        )
-        assert (np.linalg.norm(np.asarray(g_p) - np.asarray(g_x))
-                / np.linalg.norm(np.asarray(g_x))) < 1e-5
-
-    def test_binning_reuse_across_channels(self, rng):
-        # multi-channel amortization: bin once, swap the vis rows of the
-        # record stream, grid — must equal binning the new channel fresh
-        import jax
-
-        from ska_sdp_tpu.kernels.idg_pallas import (
-            idg_bin_records,
-            idg_grid_from_records,
-            idg_gridder_pallas,
-        )
-
-        p, w, vis_a = _problem(rng, b=200)
-        vis_b = (rng.standard_normal(200)
-                 + 1j * rng.standard_normal(200)).astype(np.complex64)
-
-        recs, starts = idg_bin_records(
-            (N, N), jnp.asarray(p), jnp.asarray(w),
-            jnp.real(jnp.asarray(vis_a)), jnp.imag(jnp.asarray(vis_a)),
-            subgrid=32,
-        )
-        # channel B's vis arrive in record order: rebin channel B only to
-        # extract its sorted vis rows, then splice them into channel A's
-        # records (same uvw ⇒ identical ordering)
-        recs_b, _ = idg_bin_records(
-            (N, N), jnp.asarray(p), jnp.asarray(w),
-            jnp.real(jnp.asarray(vis_b)), jnp.imag(jnp.asarray(vis_b)),
-            subgrid=32,
-        )
-        spliced = recs.at[:, 3:5, :].set(recs_b[:, 3:5, :])
-        gr, gi = idg_grid_from_records(
-            spliced, starts, (N, N), theta=THETA, subgrid=32,
-            interpret=True,
-        )
-        got = jax.lax.complex(gr, gi)
-        want = idg_gridder_pallas(
-            (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(vis_b),
-            theta=THETA, subgrid=32, interpret=True,
-        )
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), atol=1e-6
-        )
-
-    def test_s64_matches_truth(self, rng):
-        from ska_sdp_tpu.kernels.idg_pallas import idg_gridder_pallas
-
-        p, w, vis = _problem(rng, b=200)
-        g = idg_gridder_pallas(
-            (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(vis),
-            theta=THETA, subgrid=64, interpret=True,
-        )
-        img = _corrected_image(np.asarray(g), S=64)
-        assert _rel(img, _truth_image(p, w, vis)) < 3e-4
-
-
 class TestIDGFovBound:
-    """Quantified usable-FOV claims (VERDICT r2 #6): the plain image is
+    """Quantified usable-FOV claims: the plain image is
     accurate inside 75% of the max-norm radius; the padded-FOV plan
     (``idg_fov_pad_plan``) bounds the FULL target-FOV error.  These assert
     the claimed bounds — measured in experiments/idg_fov_sweep.py —
@@ -344,7 +274,7 @@ class TestIDGFovBound:
 
 
 class TestIDGPredictFovPad:
-    """fov_pad for the PREDICT direction (VERDICT r3 #8): embedding the
+    """fov_pad for the PREDICT direction: embedding the
     model in a padded FOV before the taper division bounds the error of
     predictions from edge sources — round-trip workflows no longer mix a
     padded forward with an edge-degraded reverse."""
@@ -402,77 +332,9 @@ class TestIDGPredictFovPad:
         np.testing.assert_allclose(out[1], out[0], atol=5e-4)
 
 
-class TestIDGDegridPallas:
-    """Pallas IDG degridder vs the XLA realization (interpret mode) +
-    adjointness through the Pallas pair (VERDICT r2 #4)."""
-
-    def test_matches_xla_idg_degrid(self, rng):
-        from ska_sdp_tpu.kernels.idg_degrid_pallas import (
-            idg_degrid_wproj_pallas,
-        )
-        from ska_sdp_tpu.ops.idg import idg_degrid_wproj
-
-        b = 300
-        p, w, vis = _problem(rng, b=b)
-        grid = (rng.standard_normal((N, N))
-                + 1j * rng.standard_normal((N, N))).astype(np.complex64)
-        got = idg_degrid_wproj_pallas(
-            (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(grid),
-            theta=THETA, subgrid=S, interpret=True,
-        )
-        want = idg_degrid_wproj(
-            (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(grid),
-            theta=THETA, subgrid=S,
-        )
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), atol=2e-4, rtol=1e-3
-        )
-
-    def test_oob_zeroed(self, rng):
-        from ska_sdp_tpu.kernels.idg_degrid_pallas import (
-            idg_degrid_wproj_pallas,
-        )
-
-        b = 64
-        p = rng.uniform(0.47, 0.60, (b, 3))
-        p[::2] *= -1
-        w = rng.uniform(-WMAX, WMAX, b).astype(np.float32)
-        grid = (rng.standard_normal((N, N))
-                + 1j * rng.standard_normal((N, N))).astype(np.complex64)
-        got = np.asarray(idg_degrid_wproj_pallas(
-            (N, N), jnp.asarray(p.astype(np.float32)), jnp.asarray(w),
-            jnp.asarray(grid), theta=THETA, subgrid=S, interpret=True,
-        ))
-        fully_out = np.abs(p[:, :2]).max(axis=1) > 0.5 + (17 / (2 * N))
-        assert np.all(got[fully_out] == 0)
-
-    def test_adjoint_through_pallas_pair(self, rng):
-        # <G, grid(v)> == <degrid(G), v> with the taper folded both ways
-        from ska_sdp_tpu.kernels.idg_degrid_pallas import (
-            idg_degrid_wproj_pallas,
-        )
-        from ska_sdp_tpu.kernels.idg_pallas import idg_gridder_pallas
-
-        b = 200
-        p, w, vis = _problem(rng, b=b)
-        G = (rng.standard_normal((N, N))
-             + 1j * rng.standard_normal((N, N))).astype(np.complex64)
-        Av = np.asarray(idg_gridder_pallas(
-            (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(vis),
-            theta=THETA, subgrid=S, interpret=True,
-        ))
-        AtG = np.asarray(idg_degrid_wproj_pallas(
-            (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(G),
-            theta=THETA, subgrid=S, interpret=True,
-        ))
-        lhs = np.vdot(G, Av)
-        rhs = np.vdot(AtG, vis)
-        assert abs(lhs - rhs) / max(abs(lhs), 1e-30) < 1e-3, (lhs, rhs)
-
-
 class TestIDGNonSquare:
-    """H≠W grids through the whole IDG stack (VERDICT r2 #4): XLA pair
-    adjointness + Pallas parity on a rectangular grid."""
+    """H≠W grids through the whole IDG stack: grid/degrid adjointness on
+    a rectangular grid."""
 
     def test_xla_grid_degrid_adjoint_rect(self, rng):
         from ska_sdp_tpu.ops.idg import idg_degrid_wproj
@@ -495,81 +357,6 @@ class TestIDGNonSquare:
         lhs = np.vdot(G, Av)
         rhs = np.vdot(AtG, vis)
         assert abs(lhs - rhs) / max(abs(lhs), 1e-30) < 1e-3, (lhs, rhs)
-
-    def test_pallas_matches_xla_rect(self, rng):
-        from ska_sdp_tpu.kernels.idg_pallas import idg_gridder_pallas
-
-        H, W, b = 192, 320, 250
-        p = rng.uniform(-0.42, 0.42, (b, 3)).astype(np.float32)
-        w = rng.uniform(-WMAX, WMAX, b).astype(np.float32)
-        vis = (rng.standard_normal(b)
-               + 1j * rng.standard_normal(b)).astype(np.complex64)
-        got = np.asarray(idg_gridder_pallas(
-            (H, W), jnp.asarray(p), jnp.asarray(w), jnp.asarray(vis),
-            theta=0.05, subgrid=S, interpret=True,
-        ))
-        want = np.asarray(idg_grid_wproj(
-            (H, W), jnp.asarray(p), jnp.asarray(w), jnp.asarray(vis),
-            theta=0.05, subgrid=S,
-        ))
-        d = np.linalg.norm(got - want) / np.linalg.norm(want)
-        assert d < 1e-5, d
-
-    def test_pallas_degrid_matches_xla_rect(self, rng):
-        from ska_sdp_tpu.kernels.idg_degrid_pallas import (
-            idg_degrid_wproj_pallas,
-        )
-        from ska_sdp_tpu.ops.idg import idg_degrid_wproj
-
-        H, W, b = 192, 320, 250
-        p = rng.uniform(-0.42, 0.42, (b, 3)).astype(np.float32)
-        w = rng.uniform(-WMAX, WMAX, b).astype(np.float32)
-        G = (rng.standard_normal((H, W))
-             + 1j * rng.standard_normal((H, W))).astype(np.complex64)
-        got = np.asarray(idg_degrid_wproj_pallas(
-            (H, W), jnp.asarray(p), jnp.asarray(w), jnp.asarray(G),
-            theta=0.05, subgrid=S, interpret=True,
-        ))
-        want = np.asarray(idg_degrid_wproj(
-            (H, W), jnp.asarray(p), jnp.asarray(w), jnp.asarray(G),
-            theta=0.05, subgrid=S,
-        ))
-        d = np.linalg.norm(got - want) / np.linalg.norm(want)
-        assert d < 1e-5, d
-
-
-class TestIDGDegridPallasMultiBlock:
-    def test_clustered_records_exercise_block_streaming(self, rng):
-        """Thousands of records concentrated in few subgrids force the
-        kernel's multi-block path (head + streamed main blocks + the
-        double-buffered drain at nblocks >= 3) — uniform tests leave every
-        program with <= 1 block."""
-        from ska_sdp_tpu.kernels.idg_degrid_pallas import (
-            idg_degrid_wproj_pallas,
-        )
-        from ska_sdp_tpu.ops.idg import idg_degrid_wproj
-
-        b = 4000
-        # cluster 90% of records into a tiny uv patch (one/two subgrids
-        # get ~10+ blocks); keep 10% spread out for mixed coverage
-        p = rng.uniform(-0.42, 0.42, (b, 3)).astype(np.float32)
-        p[: (9 * b) // 10, :2] = rng.uniform(
-            0.01, 0.03, ((9 * b) // 10, 2)
-        ).astype(np.float32)
-        w = rng.uniform(-WMAX, WMAX, b).astype(np.float32)
-        grid = (rng.standard_normal((N, N))
-                + 1j * rng.standard_normal((N, N))).astype(np.complex64)
-        got = idg_degrid_wproj_pallas(
-            (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(grid),
-            theta=THETA, subgrid=S, interpret=True,
-        )
-        want = idg_degrid_wproj(
-            (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(grid),
-            theta=THETA, subgrid=S,
-        )
-        d = np.linalg.norm(np.asarray(got) - np.asarray(want)) / \
-            np.linalg.norm(np.asarray(want))
-        assert d < 1e-5, d
 
 
 # ---------------------------------------------------------------------------
@@ -774,155 +561,6 @@ class TestIDGAW:
         assert np.all(np.isfinite(np.asarray(g)))
 
 
-class TestIDGAWPallas:
-    def test_interpret_matches_xla_oracle(self, rng):
-        """Pallas IDG-AW (interpret mode) vs the XLA path on identical
-        float32 inputs — same chunking, same screens, same grid."""
-        from ska_sdp_tpu.kernels.idg_aw_pallas import idg_aw_gridder_pallas
-        from ska_sdp_tpu.ops.idg_aw import aw_screens, idg_grid_aw
-
-        p, w, a1, a2, vis, nbl = _track_problem(rng, nant=5, ntime=64)
-        s = 15
-        nant = 5
-        ak = np.zeros((nant, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        c = s // 2
-        ak[:, c - 2:c + 3, c - 2:c + 3] += 0.1 * (
-            rng.standard_normal((nant, 5, 5))
-            + 1j * rng.standard_normal((nant, 5, 5))).astype(np.complex64)
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        pj = jnp.asarray(p, jnp.float32)
-        wj = jnp.asarray(w, jnp.float32)
-        vj = jnp.asarray(vis, jnp.complex64)
-        a1j = jnp.asarray(a1)
-        a2j = jnp.asarray(a2)
-
-        g_want, nd_want = idg_grid_aw(
-            (N, N), pj, a1j, a2j, wj, vj, scr, theta=THETA, subgrid=SA,
-            max_runs=8 * nbl + p.shape[0] // 128 + 64,
-        )
-        g_got, nd_got = idg_aw_gridder_pallas(
-            (N, N), pj, a1j, a2j, wj, vj, scr, theta=THETA, subgrid=SA,
-            max_runs=8 * nbl + p.shape[0] // 128 + 64, interpret=True,
-        )
-        assert int(nd_want) == int(nd_got) == 0
-        d = np.linalg.norm(np.asarray(g_got) - np.asarray(g_want)) / \
-            np.linalg.norm(np.asarray(g_want))
-        assert d < 2e-5, d
-
-    def test_interpret_edge_origins_and_drops(self, rng):
-        """Chunks near the grid edge (clipped origins) and a scattered
-        pair (drops) exercise the placement window bounds."""
-        from ska_sdp_tpu.kernels.idg_aw_pallas import idg_aw_gridder_pallas
-        from ska_sdp_tpu.ops.idg_aw import aw_screens, idg_grid_aw
-
-        b = 512
-        p = np.zeros((b, 3), np.float32)
-        # pair (0,1): tight cluster hugging the +u,+v grid corner
-        p[:256, 0] = 0.49 + rng.uniform(-4 / N, 0, 256)
-        p[:256, 1] = 0.49 + rng.uniform(-4 / N, 0, 256)
-        # pair (1,2): scattered — mostly dropped
-        p[256:, :2] = rng.uniform(-0.45, 0.45, (256, 2)).astype(np.float32)
-        w = rng.uniform(-WMAX, WMAX, b).astype(np.float32)
-        vis = (rng.standard_normal(b)
-               + 1j * rng.standard_normal(b)).astype(np.complex64)
-        a1 = np.r_[np.zeros(256, np.int32), np.ones(256, np.int32)]
-        a2 = np.r_[np.ones(256, np.int32), np.full(256, 2, np.int32)]
-        s = 15
-        ak = np.zeros((3, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-
-        g_want, nd_want = idg_grid_aw(
-            (N, N), jnp.asarray(p), jnp.asarray(a1), jnp.asarray(a2),
-            jnp.asarray(w), jnp.asarray(vis), scr, theta=THETA, subgrid=SA,
-            max_runs=8,
-        )
-        g_got, nd_got = idg_aw_gridder_pallas(
-            (N, N), jnp.asarray(p), jnp.asarray(a1), jnp.asarray(a2),
-            jnp.asarray(w), jnp.asarray(vis), scr, theta=THETA, subgrid=SA,
-            max_runs=8, interpret=True,
-        )
-        assert int(nd_want) == int(nd_got) > 0
-        d = np.linalg.norm(np.asarray(g_got) - np.asarray(g_want)) / \
-            np.linalg.norm(np.asarray(g_want))
-        assert d < 2e-5, d
-
-
-class TestIDGAWOrderedPrep:
-    """``ordered=True`` prep (VERDICT r3 #4): a pair-major stream needs no
-    comparison sort — the run CSR only requires same-(pair,tile) records
-    to be contiguous.  Parity vs the sorted path and vs the XLA oracle;
-    plus the honesty net: a scrambled stream overflows into counted
-    drops instead of silently corrupting."""
-
-    def _setup(self, rng):
-        from ska_sdp_tpu.ops.idg_aw import aw_screens
-
-        p, w, a1, a2, vis, nbl = _track_problem(rng, nant=5, ntime=64)
-        nant = 5
-        s = 15
-        ak = np.zeros((nant, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        c = s // 2
-        ak[:, c - 2:c + 3, c - 2:c + 3] += 0.1 * (
-            rng.standard_normal((nant, 5, 5))
-            + 1j * rng.standard_normal((nant, 5, 5))).astype(np.complex64)
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        # pair-major relayout (stable: preserves time order within pairs)
-        order = np.argsort(a1.astype(np.int64) * nant + a2, kind="stable")
-        mr = 8 * nbl + p.shape[0] // 128 + 64
-        return (p[order], w[order], a1[order], a2[order], vis[order],
-                scr, mr)
-
-    def test_ordered_matches_sorted_and_oracle(self, rng):
-        from ska_sdp_tpu.kernels.idg_aw_pallas import idg_aw_gridder_pallas
-        from ska_sdp_tpu.ops.idg_aw import idg_grid_aw
-
-        p, w, a1, a2, vis, scr, mr = self._setup(rng)
-        pj = jnp.asarray(p, jnp.float32)
-        wj = jnp.asarray(w, jnp.float32)
-        vj = jnp.asarray(vis, jnp.complex64)
-        a1j, a2j = jnp.asarray(a1), jnp.asarray(a2)
-        g_oracle, nd_o = idg_grid_aw(
-            (N, N), pj, a1j, a2j, wj, vj, scr, theta=THETA, subgrid=SA,
-            max_runs=mr)
-        g_sorted, nd_s = idg_aw_gridder_pallas(
-            (N, N), pj, a1j, a2j, wj, vj, scr, theta=THETA, subgrid=SA,
-            max_runs=mr, interpret=True)
-        g_ordered, nd_u = idg_aw_gridder_pallas(
-            (N, N), pj, a1j, a2j, wj, vj, scr, theta=THETA, subgrid=SA,
-            max_runs=mr, interpret=True, ordered=True)
-        assert int(nd_o) == int(nd_s) == int(nd_u) == 0
-        ref = np.asarray(g_oracle)
-        for g in (np.asarray(g_sorted), np.asarray(g_ordered)):
-            d = np.linalg.norm(g - ref) / np.linalg.norm(ref)
-            assert d < 2e-5, d
-        # ordered and sorted preps drive the SAME kernel; under the
-        # round-4 streamed split3 default the record order inside runs
-        # differs, so the bf16 hi/lo splits round differently — bound by
-        # the tier's own error, not bitwise (it was <1e-6 at HIGHEST)
-        d = (np.linalg.norm(np.asarray(g_ordered) - np.asarray(g_sorted))
-             / np.linalg.norm(ref))
-        assert d < 2e-5, d
-
-    def test_scrambled_stream_overflows_into_counted_drops(self, rng):
-        from ska_sdp_tpu.kernels.idg_aw_pallas import idg_aw_gridder_pallas
-
-        p, w, a1, a2, vis, scr, mr = self._setup(rng)
-        perm = rng.permutation(p.shape[0])
-        g, nd = idg_aw_gridder_pallas(
-            (N, N), jnp.asarray(p[perm], jnp.float32),
-            jnp.asarray(a1[perm]), jnp.asarray(a2[perm]),
-            jnp.asarray(w[perm], jnp.float32),
-            jnp.asarray(vis[perm], jnp.complex64), scr, theta=THETA,
-            subgrid=SA, max_runs=mr, interpret=True, ordered=True)
-        # a scrambled stream fragments into >> max_runs runs; the surplus
-        # must be COUNTED, never silently mis-gridded
-        assert int(nd) > 0
-        assert np.all(np.isfinite(np.asarray(g)))
-
-
 class TestIDGAWDegrid:
     def test_adjoint_exact(self, rng):
         """<grid_aw(v), G> == <v, degrid_aw(G)> through the IDG-AW pair —
@@ -987,143 +625,12 @@ class TestIDGAWDegrid:
         assert d < 3e-4, d
 
 
-class TestIDGAWSustained:
-    def test_from_records_channel_swap(self, rng):
-        """The sustained-mode contract: rebinding only the vis rows of the
-        run-record stream grids a second channel exactly (the sort and
-        run geometry are uvw/pair-determined)."""
-        from ska_sdp_tpu.kernels.idg_aw_pallas import (
-            idg_aw_grid_from_records,
-            idg_aw_grid_pallas,
-            idg_aw_run_records,
-        )
-        from ska_sdp_tpu.ops.idg_aw import aw_screens
-
-        p, w, a1, a2, vis, nbl = _track_problem(rng, nant=4, ntime=48)
-        mr = 8 * nbl + p.shape[0] // 128 + 64
-        s = 15
-        ak = np.zeros((4, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        sre = jnp.real(scr).astype(jnp.float32)
-        sim = jnp.imag(scr).astype(jnp.float32)
-        pj = jnp.asarray(p, jnp.float32)
-        wj = jnp.asarray(w, jnp.float32)
-        a1j = jnp.asarray(a1)
-        a2j = jnp.asarray(a2)
-        v1r = jnp.asarray(vis.real, jnp.float32)
-        v1i = jnp.asarray(vis.imag, jnp.float32)
-        vis2 = (rng.standard_normal(p.shape[0])
-                + 1j * rng.standard_normal(p.shape[0]))
-        v2r = jnp.asarray(vis2.real, jnp.float32)
-        v2i = jnp.asarray(vis2.imag, jnp.float32)
-
-        # channel-2 records via re-pack of the vis rows only
-        recs1, st, en, y0, x0, i1, i2, nd, _ = idg_aw_run_records(
-            (N, N), pj, a1j, a2j, wj, v1r, v1i, subgrid=SA, max_runs=mr)
-        recs2, *_ = idg_aw_run_records(
-            (N, N), pj, a1j, a2j, wj, v2r, v2i, subgrid=SA, max_runs=mr)
-        recs_swapped = recs1.at[:, 3:5, :].set(recs2[:, 3:5, :])
-        gr, gi = idg_aw_grid_from_records(
-            recs_swapped, st, en, y0, x0, i1, i2, (N, N), sre, sim,
-            theta=THETA, subgrid=SA, interpret=True)
-
-        gr2, gi2, nd2 = idg_aw_grid_pallas(
-            (N, N), pj, a1j, a2j, wj, v2r, v2i, sre, sim, theta=THETA,
-            subgrid=SA, max_runs=mr, interpret=True)
-        assert int(nd) == int(nd2) == 0
-        np.testing.assert_array_equal(np.asarray(gr), np.asarray(gr2))
-        np.testing.assert_array_equal(np.asarray(gi), np.asarray(gi2))
-
-
-class TestIDGAWDegridPallas:
-    def test_interpret_matches_xla_oracle(self, rng):
-        """Pallas IDG-AW degridder (interpret mode) vs the XLA adjoint on
-        identical float32 inputs — same run geometry, same screens."""
-        from ska_sdp_tpu.kernels.idg_aw_degrid_pallas import (
-            idg_aw_degridder_pallas,
-        )
-        from ska_sdp_tpu.ops.idg_aw import aw_screens, idg_degrid_aw
-
-        p, w, a1, a2, vis, nbl = _track_problem(rng, nant=5, ntime=64)
-        mr = 8 * nbl + p.shape[0] // 128 + 64
-        s = 15
-        ak = np.zeros((5, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        c = s // 2
-        ak[:, c - 2:c + 3, c - 2:c + 3] += 0.1 * (
-            rng.standard_normal((5, 5, 5))
-            + 1j * rng.standard_normal((5, 5, 5))).astype(np.complex64)
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        G = (rng.standard_normal((N, N))
-             + 1j * rng.standard_normal((N, N))).astype(np.complex64)
-        pj = jnp.asarray(p, jnp.float32)
-        wj = jnp.asarray(w, jnp.float32)
-        a1j = jnp.asarray(a1)
-        a2j = jnp.asarray(a2)
-
-        want, nd_w = idg_degrid_aw(
-            (N, N), pj, a1j, a2j, wj, jnp.asarray(G), scr, theta=THETA,
-            subgrid=SA, max_runs=mr,
-        )
-        got, nd_g = idg_aw_degridder_pallas(
-            (N, N), pj, a1j, a2j, wj, jnp.asarray(G), scr, theta=THETA,
-            subgrid=SA, max_runs=mr, interpret=True,
-        )
-        assert int(nd_w) == int(nd_g) == 0
-        d = np.linalg.norm(np.asarray(got) - np.asarray(want)) / \
-            np.linalg.norm(np.asarray(want))
-        assert d < 2e-5, d
-
-    def test_interpret_multiblock_and_oob(self, rng):
-        """Runs spanning several record blocks (head + streamed main +
-        drain) plus OOB records exercising the epilogue masks."""
-        from ska_sdp_tpu.kernels.idg_aw_degrid_pallas import (
-            idg_aw_degridder_pallas,
-        )
-        from ska_sdp_tpu.ops.idg_aw import aw_screens, idg_degrid_aw
-
-        b = 4000
-        p = np.zeros((b, 3), np.float32)
-        # one pair, tight cluster -> one run with ~16 blocks
-        p[:, 0] = 0.1 + rng.uniform(-5 / N, 5 / N, b)
-        p[:, 1] = -0.2 + rng.uniform(-5 / N, 5 / N, b)
-        p[::97, 0] = 0.55                     # sprinkle OOB records
-        w = rng.uniform(-WMAX, WMAX, b).astype(np.float32)
-        a1 = np.zeros(b, np.int32)
-        a2 = np.ones(b, np.int32)
-        s = 15
-        ak = np.zeros((2, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        G = (rng.standard_normal((N, N))
-             + 1j * rng.standard_normal((N, N))).astype(np.complex64)
-
-        want, nd_w = idg_degrid_aw(
-            (N, N), jnp.asarray(p), jnp.asarray(a1), jnp.asarray(a2),
-            jnp.asarray(w), jnp.asarray(G), scr, theta=THETA, subgrid=SA,
-            max_runs=64,
-        )
-        got, nd_g = idg_aw_degridder_pallas(
-            (N, N), jnp.asarray(p), jnp.asarray(a1), jnp.asarray(a2),
-            jnp.asarray(w), jnp.asarray(G), scr, theta=THETA, subgrid=SA,
-            max_runs=64, interpret=True,
-        )
-        assert int(nd_w) == int(nd_g)
-        oob = np.zeros(b, bool)
-        oob[::97] = True
-        assert np.all(np.asarray(got)[oob] == 0)
-        d = np.linalg.norm(np.asarray(got) - np.asarray(want)) / \
-            np.linalg.norm(np.asarray(want))
-        assert d < 2e-5, d
-
-
 class TestIDGAWFovPad:
     def test_fov_pad_with_offcenter_akerns_matches_truth(self, rng):
         """Padded-FOV IDG-AW with NON-delta A-kernels: screens must be
         sampled at the gridding FOV's angular scale (``fov_scale``), not
         the target FOV's — without the ratio the applied antenna pattern
-        is angularly dilated by 1/fov_pad (review r3)."""
+        is angularly dilated by 1/fov_pad."""
         from ska_sdp_tpu.ops.idg import (fov_pad_geometry, kaiser_taper,
                                          taper_fine)
         from ska_sdp_tpu.ops.idg_aw import aw_screens, idg_grid_aw
@@ -1159,564 +666,3 @@ class TestIDGAWFovPad:
         d = np.linalg.norm(img - truth.real) / np.linalg.norm(truth.real)
         assert d < 2e-3, d
 
-
-class TestIDGAWStream:
-    """Round-4 streamed (block-major) IDG-AW kernel
-    (``kernels/idg_aw_stream_pallas``): the block stream is walked once,
-    phases are shared across the runs inside a block, run accumulators
-    persist across block boundaries, and the split3 tier runs every dot
-    as 3 bf16-rate passes (measured ~7e-6 vs exact)."""
-
-    def _problem(self, rng, nant=5, ntime=64):
-        from ska_sdp_tpu.ops.idg_aw import aw_screens
-
-        p, w, a1, a2, vis, nbl = _track_problem(rng, nant=nant,
-                                                ntime=ntime)
-        s = 15
-        ak = np.zeros((nant, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        c = s // 2
-        ak[:, c - 2:c + 3, c - 2:c + 3] += 0.1 * (
-            rng.standard_normal((nant, 5, 5))
-            + 1j * rng.standard_normal((nant, 5, 5))).astype(np.complex64)
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        mr = 8 * nbl + p.shape[0] // 128 + 64
-        return (jnp.asarray(p, jnp.float32), jnp.asarray(w, jnp.float32),
-                jnp.asarray(a1), jnp.asarray(a2),
-                jnp.asarray(vis, jnp.complex64), scr, mr)
-
-    def test_stream_matches_run_major_both_tiers(self, rng, monkeypatch):
-        """Streamed kernel vs the run-major kernel on runs that span
-        block boundaries (ntime=64 < CHUNK=256 ⇒ several runs per block,
-        some crossing)."""
-        from ska_sdp_tpu.kernels.idg_aw_pallas import idg_aw_gridder_pallas
-        from ska_sdp_tpu.kernels.idg_aw_stream_pallas import (
-            idg_aw_gridder_stream)
-
-        p, w, a1, a2, vis, scr, mr = self._problem(rng)
-        monkeypatch.setenv("SKA_SDP_TPU_IDG_AW_KERNEL", "run")
-        g_run, nd_run = idg_aw_gridder_pallas(
-            (N, N), p, a1, a2, w, vis, scr, theta=THETA, subgrid=SA,
-            max_runs=mr, interpret=True)
-        ref = np.asarray(g_run)
-        for tier, tol in (("exact", 2e-6), ("split3", 5e-5)):
-            monkeypatch.setenv("SKA_SDP_TPU_IDG_AW_PRECISION", tier)
-            g_st, nd_st = idg_aw_gridder_stream(
-                (N, N), p, a1, a2, w, vis, scr, theta=THETA, subgrid=SA,
-                max_runs=mr, interpret=True)
-            assert int(nd_run) == int(nd_st) == 0
-            d = np.linalg.norm(np.asarray(g_st) - ref) / np.linalg.norm(ref)
-            assert d < tol, (tier, d)
-
-    def test_from_records_dispatch_default_is_stream(self, rng,
-                                                     monkeypatch):
-        """``idg_aw_grid_from_records`` (the sustained/spectral contract)
-        delegates to the streamed kernel unless pinned to ``run`` — both
-        agree on the same prepped records."""
-        from ska_sdp_tpu.kernels.idg_aw_pallas import (
-            idg_aw_grid_from_records, idg_aw_run_records)
-
-        p, w, a1, a2, vis, scr, mr = self._problem(rng, nant=4, ntime=48)
-        recs, st, en, y0, x0, i1, i2, nd, _ = idg_aw_run_records(
-            (N, N), p, a1, a2, w, jnp.real(vis), jnp.imag(vis),
-            max_runs=mr)
-        assert int(nd) == 0
-        sre = jnp.real(scr).astype(jnp.float32)
-        sim = jnp.imag(scr).astype(jnp.float32)
-        outs = {}
-        for impl in ("run", "stream"):
-            monkeypatch.setenv("SKA_SDP_TPU_IDG_AW_KERNEL", impl)
-            gr, gi = idg_aw_grid_from_records(
-                recs, st, en, y0, x0, i1, i2, (N, N), sre, sim,
-                theta=THETA, subgrid=SA, interpret=True)
-            outs[impl] = np.dstack([np.asarray(gr), np.asarray(gi)])
-        d = (np.linalg.norm(outs["stream"] - outs["run"])
-             / np.linalg.norm(outs["run"]))
-        assert d < 5e-5, d
-
-    def test_block_run_ranges(self):
-        """Hand-built CSR: run segment boundaries map to exactly the
-        blocks they intersect; empty CSR tail entries never appear."""
-        from ska_sdp_tpu.kernels.idg_aw_stream_pallas import (
-            block_run_ranges)
-
-        # blocks of 4 over 16 slots; runs [0,3) [3,4) [4,9) [9,16); two
-        # empty tail entries
-        starts = jnp.asarray([0, 3, 4, 9, 16, 16], jnp.int32)
-        ends = jnp.asarray([3, 4, 9, 16, 16, 16], jnp.int32)
-        rs, re = block_run_ranges(starts, ends, 16, 4)
-        assert rs.tolist() == [0, 2, 2, 3]
-        assert re.tolist() == [2, 3, 4, 4]
-
-
-class TestIDGViaUnitScreenRuns:
-    """Plain IDG through the IDG-AW run machinery with UNIT screens and
-    zero pair ids (the round-4 spectral-driver fast path): with every
-    record keyed (pair=0, uv-tile), runs are the occupied tiles and
-    conj(1·1)=1 makes the operator plain exact continuous-w IDG."""
-
-    def test_unit_screen_runs_match_idg_oracle(self, rng):
-        from ska_sdp_tpu.kernels.idg_aw_stream_pallas import (
-            idg_aw_gridder_stream)
-        from ska_sdp_tpu.ops.idg import idg_grid_wproj
-
-        b = 3000
-        p = np.zeros((b, 3), np.float32)
-        p[:, :2] = rng.uniform(-0.42, 0.42, (b, 2)).astype(np.float32)
-        w = rng.uniform(-WMAX, WMAX, b).astype(np.float32)
-        vis = (rng.standard_normal(b)
-               + 1j * rng.standard_normal(b)).astype(np.complex64)
-        zer = jnp.zeros((b,), jnp.int32)
-        scr = jnp.ones((1, SA, SA), jnp.complex64)
-
-        margin_full = SA // 2 - 15 // 2 - 12
-        tc = 2 * margin_full - 2
-        max_runs = ((N + 2 * SA) // tc + 2) ** 2 + 64
-        got, nd = idg_aw_gridder_stream(
-            (N, N), jnp.asarray(p), zer, zer, jnp.asarray(w),
-            jnp.asarray(vis), scr, theta=THETA, subgrid=SA,
-            max_runs=max_runs, interpret=True)
-        assert int(nd) == 0
-        want = idg_grid_wproj((N, N), jnp.asarray(p), jnp.asarray(w),
-                              jnp.asarray(vis), theta=THETA, subgrid=SA)
-        d = (np.linalg.norm(np.asarray(got) - np.asarray(want))
-             / np.linalg.norm(np.asarray(want)))
-        assert d < 5e-5, d
-
-
-class TestIDGAWDegridStream:
-    """Round-4 streamed (block-major) IDG-AW DEgridder: per-run window
-    prologue, shared per-block trig, one output block per stream block
-    (the run-major head/main boundary protocol disappears)."""
-
-    def test_stream_degrid_matches_run_major_and_oracle(self, rng,
-                                                        monkeypatch):
-        from ska_sdp_tpu.kernels.idg_aw_degrid_pallas import (
-            idg_aw_degridder_pallas)
-        from ska_sdp_tpu.kernels.idg_aw_stream_pallas import (
-            idg_aw_degridder_stream)
-        from ska_sdp_tpu.ops.idg_aw import aw_screens, idg_degrid_aw
-
-        p, w, a1, a2, _vis, nbl = _track_problem(rng, nant=5, ntime=64)
-        nant = 5
-        s = 15
-        ak = np.zeros((nant, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        c = s // 2
-        ak[:, c - 2:c + 3, c - 2:c + 3] += 0.1 * (
-            rng.standard_normal((nant, 5, 5))
-            + 1j * rng.standard_normal((nant, 5, 5))).astype(np.complex64)
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        grid = (rng.standard_normal((N, N))
-                + 1j * rng.standard_normal((N, N))).astype(np.complex64)
-        mr = 8 * nbl + p.shape[0] // 128 + 64
-        args = (jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-                jnp.asarray(a2), jnp.asarray(w, jnp.float32),
-                jnp.asarray(grid), scr)
-
-        monkeypatch.setenv("SKA_SDP_TPU_IDG_AW_KERNEL", "run")
-        v_run, nd_run = idg_aw_degridder_pallas(
-            (N, N), args[0], args[1], args[2], args[3], args[4], args[5],
-            theta=THETA, subgrid=SA, max_runs=mr, interpret=True)
-        v_or, nd_or = idg_degrid_aw(
-            (N, N), args[0], args[1], args[2], args[3], args[4], args[5],
-            theta=THETA, subgrid=SA, max_runs=mr)
-        ref = np.asarray(v_run)
-        for tier, tol in (("exact", 1e-12), ("split3", 5e-5)):
-            monkeypatch.setenv("SKA_SDP_TPU_IDG_AW_PRECISION", tier)
-            v_st, nd_st = idg_aw_degridder_stream(
-                (N, N), args[0], args[1], args[2], args[3], args[4],
-                args[5], theta=THETA, subgrid=SA, max_runs=mr,
-                interpret=True)
-            assert int(nd_run) == int(nd_st) == int(nd_or) == 0
-            d = (np.linalg.norm(np.asarray(v_st) - ref)
-                 / np.linalg.norm(ref))
-            assert d < tol, (tier, d)
-        d = (np.linalg.norm(np.asarray(v_st) - np.asarray(v_or))
-             / np.linalg.norm(np.asarray(v_or)))
-        assert d < 5e-5, d
-
-
-class TestIDGAWBanded:
-    """Banded streamed gridding for >VMEM grids: K row bands, one
-    streamed pass per band over the shared (band, pair, tile)-sorted
-    stream, overlap-added.  Forced small bands via a monkeypatched VMEM
-    budget so the multi-band machinery runs at test scale."""
-
-    def test_banded_matches_oracle(self, rng, monkeypatch):
-        import ska_sdp_tpu.kernels.idg_aw_stream_pallas as SP
-        from ska_sdp_tpu.ops.idg_aw import aw_screens, idg_grid_aw
-
-        p, w, a1, a2, vis, nbl = _track_problem(rng, nant=5, ntime=64)
-        nant = 5
-        s = 15
-        ak = np.zeros((nant, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        c = s // 2
-        ak[:, c - 2:c + 3, c - 2:c + 3] += 0.1 * (
-            rng.standard_normal((nant, 5, 5))
-            + 1j * rng.standard_normal((nant, 5, 5))).astype(np.complex64)
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        mr = 8 * nbl * 4 + p.shape[0] // 128 + 64
-
-        orig = SP._banded_geometry
-        monkeypatch.setattr(
-            SP, "_banded_geometry",
-            lambda N_, Nx, S_, bud: orig(N_, Nx, S_, 1024 * 1024))
-        HP, WP2, K, Hb, br = SP._banded_geometry(N, N, SA, 0)
-        assert K >= 2            # the test must exercise multiple bands
-
-        got, nd = SP.idg_aw_gridder_banded(
-            (N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-            jnp.asarray(a2), jnp.asarray(w, jnp.float32),
-            jnp.asarray(vis, jnp.complex64), scr, theta=THETA,
-            subgrid=SA, max_runs=mr, interpret=True)
-        want, ndw = idg_grid_aw(
-            (N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-            jnp.asarray(a2), jnp.asarray(w, jnp.float32),
-            jnp.asarray(vis, jnp.complex64), scr, theta=THETA,
-            subgrid=SA, max_runs=mr)
-        assert int(nd) == int(ndw) == 0
-        d = (np.linalg.norm(np.asarray(got) - np.asarray(want))
-             / np.linalg.norm(np.asarray(want)))
-        assert d < 5e-5, d
-
-
-class TestIDGAWBandedDegrid:
-    def test_banded_degrid_matches_oracle(self, rng, monkeypatch):
-        import ska_sdp_tpu.kernels.idg_aw_stream_pallas as SP
-        from ska_sdp_tpu.ops.idg_aw import aw_screens, idg_degrid_aw
-
-        p, w, a1, a2, _vis, nbl = _track_problem(rng, nant=5, ntime=64)
-        nant = 5
-        s = 15
-        ak = np.zeros((nant, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        c = s // 2
-        ak[:, c - 2:c + 3, c - 2:c + 3] += 0.1 * (
-            rng.standard_normal((nant, 5, 5))
-            + 1j * rng.standard_normal((nant, 5, 5))).astype(np.complex64)
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        grid = (rng.standard_normal((N, N))
-                + 1j * rng.standard_normal((N, N))).astype(np.complex64)
-        mr = 8 * nbl * 4 + p.shape[0] // 128 + 64
-
-        orig = SP._banded_geometry
-        monkeypatch.setattr(
-            SP, "_banded_geometry",
-            lambda N_, Nx, S_, bud: orig(N_, Nx, S_, 1024 * 1024))
-        assert SP._banded_geometry(N, N, SA, 0)[2] >= 2
-
-        got, nd = SP.idg_aw_degridder_banded(
-            (N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-            jnp.asarray(a2), jnp.asarray(w, jnp.float32),
-            jnp.asarray(grid), scr, theta=THETA, subgrid=SA,
-            max_runs=mr, interpret=True)
-        want, ndw = idg_degrid_aw(
-            (N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-            jnp.asarray(a2), jnp.asarray(w, jnp.float32),
-            jnp.asarray(grid), scr, theta=THETA, subgrid=SA, max_runs=mr)
-        assert int(nd) == int(ndw) == 0
-        d = (np.linalg.norm(np.asarray(got) - np.asarray(want))
-             / np.linalg.norm(np.asarray(want)))
-        assert d < 5e-5, d
-
-
-class TestIDGAWBandedDrops:
-    def test_banded_counts_drops_like_oracle(self, rng, monkeypatch):
-        """Scattered (non-track) pairs overflow their run chunks — the
-        banded path must COUNT them identically to the oracle, never
-        silently mishandle (the honesty contract)."""
-        import ska_sdp_tpu.kernels.idg_aw_stream_pallas as SP
-        from ska_sdp_tpu.ops.idg_aw import aw_screens, idg_grid_aw
-
-        b = 1024
-        p = np.zeros((b, 3), np.float32)
-        p[:, :2] = rng.uniform(-0.45, 0.45, (b, 2)).astype(np.float32)
-        w = rng.uniform(-WMAX, WMAX, b).astype(np.float32)
-        vis = (rng.standard_normal(b)
-               + 1j * rng.standard_normal(b)).astype(np.complex64)
-        a1 = np.zeros(b, np.int32)
-        a2 = np.ones(b, np.int32)
-        s = 15
-        ak = np.zeros((2, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-
-        orig = SP._banded_geometry
-        monkeypatch.setattr(
-            SP, "_banded_geometry",
-            lambda N_, Nx, S_, bud: orig(N_, Nx, S_, 1024 * 1024))
-        got, nd = SP.idg_aw_gridder_banded(
-            (N, N), jnp.asarray(p), jnp.asarray(a1), jnp.asarray(a2),
-            jnp.asarray(w), jnp.asarray(vis), scr, theta=THETA,
-            subgrid=SA, max_runs=16, interpret=True)
-        want, ndw = idg_grid_aw(
-            (N, N), jnp.asarray(p), jnp.asarray(a1), jnp.asarray(a2),
-            jnp.asarray(w), jnp.asarray(vis), scr, theta=THETA,
-            subgrid=SA, max_runs=16)
-        assert int(ndw) > 0                       # the setup must drop
-        assert int(nd) == int(ndw)
-        d = (np.linalg.norm(np.asarray(got) - np.asarray(want))
-             / (np.linalg.norm(np.asarray(want)) + 1e-30))
-        assert d < 5e-5, d
-
-
-class TestIDGAWBandedManyAntennas:
-    def test_banded_sane_beyond_128_antennas(self, rng, monkeypatch):
-        """SKA-Low-scale antenna ids (≥128) through the banded path: the
-        band is a SEPARATE sort key (folding it into the pair key would
-        alias bands once a1 ≥ 2⁷ and silently corrupt the image)."""
-        import ska_sdp_tpu.kernels.idg_aw_stream_pallas as SP
-        from ska_sdp_tpu.ops.idg_aw import aw_screens, idg_grid_aw
-
-        nant = 200
-        pairs = [(i, i + 37) for i in range(0, nant - 37, 13)]
-        nbl = len(pairs)
-        ntime = 48
-        rows = []
-        for bi, (i, j) in enumerate(pairs):
-            u0 = rng.uniform(-0.35, 0.35, 2)
-            du = rng.uniform(-12.0 / N, 12.0 / N, 2)
-            for t in range(ntime):
-                ft = t / ntime
-                rows.append((u0[0] + du[0] * ft, u0[1] + du[1] * ft,
-                             rng.uniform(-200, 200), i, j))
-        arr = np.asarray(rows)
-        b = arr.shape[0]
-        p = np.zeros((b, 3), np.float32)
-        p[:, :2] = arr[:, :2]
-        w = arr[:, 2].astype(np.float32)
-        a1 = arr[:, 3].astype(np.int32)
-        a2 = arr[:, 4].astype(np.int32)
-        vis = (rng.standard_normal(b)
-               + 1j * rng.standard_normal(b)).astype(np.complex64)
-        s = 15
-        ak = np.zeros((nant, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        c = s // 2
-        ak[:, c - 1:c + 2, c - 1:c + 2] += 0.1 * (
-            rng.standard_normal((nant, 3, 3))
-            + 1j * rng.standard_normal((nant, 3, 3))).astype(np.complex64)
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        mr = 8 * nbl * 4 + b // 128 + 64
-
-        orig = SP._banded_geometry
-        monkeypatch.setattr(
-            SP, "_banded_geometry",
-            lambda N_, Nx, S_, bud: orig(N_, Nx, S_, 1024 * 1024))
-        assert SP._banded_geometry(N, N, SA, 0)[2] >= 2
-
-        got, nd = SP.idg_aw_gridder_banded(
-            (N, N), jnp.asarray(p), jnp.asarray(a1), jnp.asarray(a2),
-            jnp.asarray(w), jnp.asarray(vis), scr, theta=THETA,
-            subgrid=SA, max_runs=mr, interpret=True)
-        want, ndw = idg_grid_aw(
-            (N, N), jnp.asarray(p), jnp.asarray(a1), jnp.asarray(a2),
-            jnp.asarray(w), jnp.asarray(vis), scr, theta=THETA,
-            subgrid=SA, max_runs=mr)
-        assert int(nd) == int(ndw) == 0
-        d = (np.linalg.norm(np.asarray(got) - np.asarray(want))
-             / np.linalg.norm(np.asarray(want)))
-        assert d < 5e-5, d
-
-
-class TestIDGAWBandedSliced:
-    """Per-band run-table slicing (VERDICT r4 #4): max_runs past the
-    SMEM envelope, each band pass prefetches only its own slice."""
-
-    def _problem(self, rng, monkeypatch):
-        import ska_sdp_tpu.kernels.idg_aw_stream_pallas as SP
-        from ska_sdp_tpu.ops.idg_aw import aw_screens
-
-        p, w, a1, a2, vis, nbl = _track_problem(rng, nant=5, ntime=64)
-        nant, s = 5, 15
-        ak = np.zeros((nant, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        scr = aw_screens(jnp.asarray(ak), SA, dtype=jnp.complex64)
-        mr = 8 * nbl * 4 + p.shape[0] // 128 + 64
-        orig = SP._banded_geometry
-        monkeypatch.setattr(
-            SP, "_banded_geometry",
-            lambda N_, Nx, S_, bud: orig(N_, Nx, S_, 1024 * 1024))
-        assert SP._banded_geometry(N, N, SA, 0)[2] >= 2
-        return SP, p, w, a1, a2, vis, scr, mr
-
-    def test_sliced_matches_full_tables(self, rng, monkeypatch):
-        SP, p, w, a1, a2, vis, scr, mr = self._problem(rng, monkeypatch)
-        args = ((N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-                jnp.asarray(a2), jnp.asarray(w, jnp.float32),
-                jnp.asarray(vis, jnp.complex64), scr)
-        kw = dict(theta=THETA, subgrid=SA, max_runs=mr, interpret=True)
-        full, nd_f = SP.idg_aw_gridder_banded(*args, **kw)
-        # a generous per-band cap: every band's runs fit -> identical
-        sliced, nd_s = SP.idg_aw_gridder_banded(
-            *args, max_runs_band=mr - 1, **{k: v for k, v in kw.items()
-                                            if k != "max_runs"},
-            max_runs=mr)
-        assert int(nd_f) == int(nd_s) == 0
-        np.testing.assert_allclose(np.asarray(sliced), np.asarray(full),
-                                   rtol=0, atol=0)
-
-    def test_tiny_cap_drops_are_counted(self, rng, monkeypatch):
-        SP, p, w, a1, a2, vis, scr, mr = self._problem(rng, monkeypatch)
-        args = ((N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-                jnp.asarray(a2), jnp.asarray(w, jnp.float32),
-                jnp.asarray(vis, jnp.complex64), scr)
-        _, nd = SP.idg_aw_gridder_banded(
-            *args, theta=THETA, subgrid=SA, max_runs=mr,
-            max_runs_band=4, interpret=True)
-        assert int(nd) > 0          # excess runs surfaced, not silent
-
-    def test_sliced_degrid_matches_full(self, rng, monkeypatch):
-        SP, p, w, a1, a2, _vis, scr, mr = self._problem(rng, monkeypatch)
-        grid = (rng.standard_normal((N, N))
-                + 1j * rng.standard_normal((N, N))).astype(np.complex64)
-        args = ((N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-                jnp.asarray(a2), jnp.asarray(w, jnp.float32),
-                jnp.asarray(grid), scr)
-        kw = dict(theta=THETA, subgrid=SA, max_runs=mr, interpret=True)
-        full, nd_f = SP.idg_aw_degridder_banded(*args, **kw)
-        sliced, nd_s = SP.idg_aw_degridder_banded(
-            *args, max_runs_band=mr - 1, **kw)
-        assert int(nd_f) == int(nd_s) == 0
-        np.testing.assert_allclose(np.asarray(sliced), np.asarray(full),
-                                   rtol=0, atol=0)
-
-
-class TestPlainIDGBandedRoute:
-    """Plain IDG's >VMEM dispatch route (VERDICT r4 #4): unit screens +
-    zero pair ids through the banded streamed kernels, per-band bounds
-    sized statically from the band's tile count."""
-
-    def test_bounds_cover_and_route_matches_oracle(self, rng,
-                                                   monkeypatch):
-        import ska_sdp_tpu.kernels.idg_aw_stream_pallas as SP
-        from ska_sdp_tpu.kernels import _idg_banded_bounds
-        from ska_sdp_tpu.ops.idg import idg_grid_wproj
-
-        orig = SP._banded_geometry
-        monkeypatch.setattr(
-            SP, "_banded_geometry",
-            lambda N_, Nx, S_, bud: orig(N_, Nx, S_, 1024 * 1024))
-        assert SP._banded_geometry(N, N, SA, 0)[2] >= 2
-
-        # dense random uv so many tiles are occupied
-        b = 3000
-        p = np.zeros((b, 3), np.float32)
-        p[:, :2] = rng.uniform(-0.45, 0.45, (b, 2)).astype(np.float32)
-        w = rng.uniform(-WMAX, WMAX, b).astype(np.float32)
-        vis = (rng.standard_normal(b)
-               + 1j * rng.standard_normal(b)).astype(np.complex64)
-
-        bb = _idg_banded_bounds((N, N), SA, 15)
-        assert bb is not None
-        total_mr, band_mr = bb
-        zer = jnp.zeros((b,), jnp.int32)
-        scr = jnp.ones((1, SA, SA), jnp.complex64)
-        got, nd = SP.idg_aw_gridder_banded(
-            (N, N), jnp.asarray(p), zer, zer, jnp.asarray(w),
-            jnp.asarray(vis), scr, theta=THETA, subgrid=SA,
-            max_runs=total_mr, max_runs_band=band_mr, interpret=True)
-        assert int(nd) == 0        # static band bound: no overflow
-        want = idg_grid_wproj((N, N), jnp.asarray(p), jnp.asarray(w),
-                              jnp.asarray(vis), theta=THETA, subgrid=SA)
-        d = (np.linalg.norm(np.asarray(got) - np.asarray(want))
-             / np.linalg.norm(np.asarray(want)))
-        assert d < 5e-5, d
-
-class TestIDGAWSubgridEnvelope:
-    """VERDICT r4 #8: the streamed/banded kernel family past subgrid 64.
-    The kernels are S-generic (window lane width ``_win_w(S)`` and the
-    S-scaled ``auto_fit_margin`` carry the geometry); S=32 and S=128 are
-    verified here against the XLA oracle (identical operator — shared
-    ``_record_keys`` geometry), and ``scripts/tpu_smoke.py`` asserts the
-    same parity on real hardware (lowering coverage)."""
-
-    def _screens(self, rng, nant, S):
-        from ska_sdp_tpu.ops.idg_aw import aw_screens
-
-        s = 9
-        ak = np.zeros((nant, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        c = s // 2
-        ak[:, c - 1:c + 2, c - 1:c + 2] += 0.1 * (
-            rng.standard_normal((nant, 3, 3))
-            + 1j * rng.standard_normal((nant, 3, 3))).astype(np.complex64)
-        return aw_screens(jnp.asarray(ak), S, dtype=jnp.complex64)
-
-    @pytest.mark.parametrize("S2,support", [(32, 9), (128, 15)])
-    def test_stream_grid_matches_oracle(self, rng, S2, support):
-        from ska_sdp_tpu.kernels.idg_aw_stream_pallas import (
-            idg_aw_gridder_stream)
-        from ska_sdp_tpu.ops.idg_aw import idg_grid_aw
-
-        nant = 5
-        p, w, a1, a2, vis, nbl = _track_problem(rng, nant=nant, ntime=48)
-        scr = self._screens(rng, nant, S2)
-        mr = 16 * nbl + p.shape[0] // 64 + 64
-        got, nd = idg_aw_gridder_stream(
-            (N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-            jnp.asarray(a2), jnp.asarray(w, jnp.float32),
-            jnp.asarray(vis, jnp.complex64), scr, theta=THETA,
-            subgrid=S2, support=support, max_runs=mr, interpret=True)
-        want, nd_o = idg_grid_aw(
-            (N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-            jnp.asarray(a2), jnp.asarray(w, jnp.float32),
-            jnp.asarray(vis, jnp.complex64), scr, theta=THETA,
-            subgrid=S2, support=support, max_runs=mr)
-        assert int(nd) == int(nd_o) == 0
-        d = (np.linalg.norm(np.asarray(got) - np.asarray(want))
-             / np.linalg.norm(np.asarray(want)))
-        assert d < 5e-5, (S2, d)
-
-    @pytest.mark.parametrize("S2,support", [(32, 9)])
-    def test_stream_degrid_matches_oracle(self, rng, S2, support):
-        from ska_sdp_tpu.kernels.idg_aw_stream_pallas import (
-            idg_aw_degridder_stream)
-        from ska_sdp_tpu.ops.idg_aw import idg_degrid_aw
-
-        nant = 5
-        p, w, a1, a2, vis, nbl = _track_problem(rng, nant=nant, ntime=48)
-        scr = self._screens(rng, nant, S2)
-        mr = 16 * nbl + p.shape[0] // 64 + 64
-        grid = jnp.asarray(
-            (rng.standard_normal((N, N))
-             + 1j * rng.standard_normal((N, N))).astype(np.complex64))
-        got, nd = idg_aw_degridder_stream(
-            (N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-            jnp.asarray(a2), jnp.asarray(w, jnp.float32), grid, scr,
-            theta=THETA, subgrid=S2, support=support, max_runs=mr,
-            interpret=True)
-        want, nd_o = idg_degrid_aw(
-            (N, N), jnp.asarray(p, jnp.float32), jnp.asarray(a1),
-            jnp.asarray(a2), jnp.asarray(w, jnp.float32), grid, scr,
-            theta=THETA, subgrid=S2, support=support, max_runs=mr)
-        assert int(nd) == int(nd_o) == 0
-        d = (np.linalg.norm(np.asarray(got) - np.asarray(want))
-             / np.linalg.norm(np.asarray(want)))
-        assert d < 5e-5, (S2, d)
-
-    def test_dispatch_accepts_s32_and_gates_fit_floor(self):
-        from ska_sdp_tpu.kernels import _idg_unit_run_bound
-        from ska_sdp_tpu.kernels.idg_aw_pallas import (
-            _geometry, _win_w, idg_aw_resident_fits)
-        from ska_sdp_tpu.ops.idg_aw import auto_fit_margin
-
-        # S-scaled taper margin: same fraction of the half-width
-        assert auto_fit_margin(64, 15) == 13          # unchanged (r3)
-        assert auto_fit_margin(32, 9) == 6
-        assert auto_fit_margin(128, 15) == 33
-        # S=64 geometry bit-identical to the round-4 constants
-        ref_hp = ((2400 + 128 + 7) // 8) * 8 + 8
-        ref_wp2 = -(-2 * (2400 + 128) // 128) * 128 + 128
-        assert _geometry(2400, 2400, 64) == (ref_hp, ref_wp2)
-        assert _win_w(32) == 256 and _win_w(64) == 256
-        assert _win_w(128) == 384
-        assert idg_aw_resident_fits(N, N, 4, 32)
-        assert idg_aw_resident_fits(N, N, 4, 128)
-        assert not idg_aw_resident_fits(N, N, 4, 48)  # outside envelope
-        # plain-IDG unit-run route: margin < 5 (S=32 + support 15 would
-        # drop in-bounds records the fixed-tile kernels keep) is gated
-        assert _idg_unit_run_bound((N, N), 32, 15) is None
-        assert _idg_unit_run_bound((N, N), 32, 9) is not None

@@ -92,7 +92,7 @@ class TestFacade:
 
 
 class TestCheckpointGuards:
-    """ADVICE r1: rejection of an existing checkpoint must warn, and a
+    """Rejection of an existing checkpoint must warn, and a
     config-fingerprint mismatch must reject (not silently mix numerics)."""
 
     def test_fingerprint_mismatch_rejects_with_warning(self, tmp_path, rng,
@@ -155,7 +155,7 @@ class TestMetricsSink:
 
 class TestCheckpointPrecision:
     def test_f32_checkpoint_stores_f32_and_halves_size(self, tmp_path, rng):
-        """VERDICT r2 #10: checkpoints store grids at run precision —
+        """Checkpoints store grids at run precision —
         float32 runs must not pay 2x I/O for float64 slabs."""
         import os
 

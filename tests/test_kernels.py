@@ -180,68 +180,32 @@ class TestVariants:
         np.testing.assert_allclose(np.asarray(m3), np.asarray(base_l))
 
 
-class TestSincosFast:
-    """The streamed kernels' polynomial sin/cos (VERDICT r4 #6): at the
-    f32 phase-representation floor over the kernels' full phase range."""
+class TestAWScreens:
+    """``aw_screens`` (jnp, used inside jitted code) against its numpy
+    twin ``aw_screens_host`` (what the drivers use): same transform."""
 
-    def test_matches_f64_at_input_floor(self):
-        from ska_sdp_tpu.kernels.idg_aw_stream_pallas import _sincos_fast
+    @pytest.mark.parametrize("S,fov_scale", [(32, 1.0), (64, 1.0),
+                                             (64, 1.33)])
+    def test_matches_host_twin(self, rng, S, fov_scale):
+        from ska_sdp_tpu.ops.idg_aw import aw_screens, aw_screens_host
 
-        rng = np.random.default_rng(3)
-        # |ph| <= 110: |q*2pi*dy/S| <= 32*pi plus the quadratic w term
-        ph64 = rng.uniform(-110, 110, 200_000)
-        ph = jnp.asarray(ph64, jnp.float32)
-        s, c = _sincos_fast(ph)
-        # the error budget: polynomial error must not exceed ~1.2x the
-        # error already embedded in representing the phase in f32
-        repr_err = np.abs(np.sin(np.float32(ph64).astype(np.float64))
-                          - np.sin(ph64)).max()
-        assert np.abs(np.asarray(s) - np.sin(ph64)).max() < 1.5 * repr_err
-        assert np.abs(np.asarray(c) - np.cos(ph64)).max() < 1.5 * repr_err
+        ak = (rng.standard_normal((3, 15, 15))
+              + 1j * rng.standard_normal((3, 15, 15)))
+        got = np.asarray(aw_screens(jnp.asarray(ak), S,
+                                    dtype=jnp.complex128,
+                                    fov_scale=fov_scale))
+        want = aw_screens_host(ak, S, fov_scale=fov_scale)
+        np.testing.assert_allclose(got, want, atol=1e-10 * np.abs(want).max())
 
-    def test_stream_kernel_fast_vs_exact_trig(self, rng):
-        """The full streamed gridder with trig=fast stays within the
-        split3 envelope of the trig=exact run (identical inputs)."""
-        import os
+    def test_complex64_full_precision(self, rng):
+        """The complex64 screens are pinned to full-precision f32 matmuls
+        (no reduced-precision passes): error at f32 rounding level."""
+        from ska_sdp_tpu.ops.idg_aw import aw_screens, aw_screens_host
 
-        from ska_sdp_tpu.kernels.idg_aw_stream_pallas import (
-            idg_aw_gridder_stream)
-        from ska_sdp_tpu.ops.idg_aw import aw_screens_host
-
-        N = 256
-        nant, ntime, nbl = 4, 48, 6
-        u0 = rng.uniform(-0.35, 0.35, (nbl, 2))
-        du = rng.uniform(-20.0 / N, 20.0 / N, (nbl, 2))
-        ft = (np.arange(ntime) / ntime)[:, None]
-        uv = np.stack([u0[None, :, 0] + du[None, :, 0] * ft,
-                       u0[None, :, 1] + du[None, :, 1] * ft], -1)
-        n = nbl * ntime
-        p = np.zeros((n, 3), np.float32)
-        p[:, :2] = uv.reshape(n, 2)
-        w = rng.uniform(-200, 200, n).astype(np.float32)
-        ii, jj = np.triu_indices(nant, k=1)
-        sel = rng.integers(0, ii.size, nbl)
-        a1 = np.broadcast_to(ii[sel][None, :], (ntime, nbl)).ravel()
-        a2 = np.broadcast_to(jj[sel][None, :], (ntime, nbl)).ravel()
-        vis = (rng.standard_normal(n)
-               + 1j * rng.standard_normal(n)).astype(np.complex64)
-        ak = np.zeros((nant, 9, 9), np.complex64)
-        ak[:, 4, 4] = 1.0
-        scr = jnp.asarray(aw_screens_host(ak, 64).astype(np.complex64))
-        mr = 8 * nbl + n // 128 + 64
-        outs = {}
-        for trig in ("exact", "fast"):
-            os.environ["SKA_SDP_TPU_IDG_AW_TRIG"] = trig
-            try:
-                g, nd = idg_aw_gridder_stream(
-                    (N, N), jnp.asarray(p), jnp.asarray(a1, jnp.int32),
-                    jnp.asarray(a2, jnp.int32), jnp.asarray(w),
-                    jnp.asarray(vis), scr, theta=0.05, subgrid=64,
-                    max_runs=mr, interpret=True)
-            finally:
-                os.environ.pop("SKA_SDP_TPU_IDG_AW_TRIG", None)
-            assert int(nd) == 0
-            outs[trig] = np.asarray(g)
-        d = (np.linalg.norm(outs["fast"] - outs["exact"])
-             / np.linalg.norm(outs["exact"]))
-        assert d < 2e-5, d
+        ak = (rng.standard_normal((4, 15, 15))
+              + 1j * rng.standard_normal((4, 15, 15)))
+        got = np.asarray(aw_screens(jnp.asarray(ak, jnp.complex64), 64,
+                                    dtype=jnp.complex64))
+        want = aw_screens_host(ak, 64)
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert rel < 1e-6, rel

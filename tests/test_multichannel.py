@@ -1,26 +1,20 @@
-"""Multi-channel (spectral-cube) imaging: bin once, image every channel.
+"""Multi-channel (spectral-cube) imaging: every channel at its own frequency.
 
 The reference reads the whole ``/vis/frequency`` vector but images only
 channel 0 (``/root/reference/src/ImageDataset.hs:99-106``).  The
 multi-channel drivers (``models/spectral.py``) image EVERY channel at
-its own frequency while paying record binning/sorting ONCE per channel
-group — the capability behind the sustained from-records rates.
+its own frequency, with uniform weights shared per channel group.
 
 Contracts asserted here:
 
 1. ``plan_channel_groups`` covers all channels with contiguous groups
-   whose per-channel coordinate drift fits the recheck slack.
-2. The per-channel record update (``idg_records_for_channel`` /
-   ``idg_aw_records_for_channel``) reconstructs the channel's absolute
-   grid coordinates exactly (dilation about the grid center:
-   pos_c − center = r·(pos_ref − center)).
-3. Kernel-level (interpret mode): bin-once + per-channel update grids
-   equal fresh per-channel binning at the scaled coordinates.
-4. Driver-level: every channel of the cube matches a single-channel run
+   whose per-channel coordinate drift fits the slack.
+2. Group pipelines: a channel at ratio r is gridded at its dilated
+   coordinates — its image equals the single-channel pipeline run at
+   f_ref·r — and IDG-AW chunking drops are counted per channel.
+3. Driver-level: every channel of the cube matches a single-channel run
    of the same pipeline on a file holding only that channel.
-5. Records a channel's drift pushes outside the binning window are
-   zeroed AND counted (the honesty contract).
-6. The CLI ``--channels N`` path writes ``/img_cube`` [nch, n, n] with
+4. The CLI ``--channels N`` path writes ``/img_cube`` [nch, n, n] with
    ``/img`` the channel mean.
 """
 
@@ -83,193 +77,109 @@ class TestPlanChannelGroups:
 
 
 # ---------------------------------------------------------------------------
-# kernel-level: record update + interpret-mode gridding parity
+# group pipelines: channel dilation == a run at the channel's own frequency
 # ---------------------------------------------------------------------------
 
+C_LIGHT = 299792458.0
+F_REF = 1.5e8
 
-def _idg_problem(rng, b=300, lo=0.3):
-    p = rng.uniform(-lo, lo, (b, 3)).astype(np.float32)
-    w = rng.uniform(-250.0, 250.0, b).astype(np.float32)
-    vis = (rng.standard_normal(b) + 1j * rng.standard_normal(b)).astype(
-        np.complex64
-    )
-    return p, w, vis
+
+def _track_records(rng, nant=4, ntime=48):
+    """Baseline-track records in metres (time-major), for the IDG-AW
+    pair-chunking; uv stays inside ±0.3 of the grid at F_REF."""
+    pairs = [(i, j) for i in range(nant) for j in range(i + 1, nant)]
+    nbl = len(pairs)
+    scale = N / THETA * C_LIGHT / F_REF          # lam in metres
+    u0 = rng.uniform(-0.25, 0.25, (nbl, 2)) * scale
+    du = rng.uniform(-15.0 / N, 15.0 / N, (nbl, 2)) * scale
+    w0 = rng.uniform(-250.0, 250.0, nbl) * C_LIGHT / F_REF
+    rows = []
+    for t in range(ntime):
+        for b, (i, j) in enumerate(pairs):
+            uv = u0[b] + du[b] * t / ntime
+            rows.append((uv[0], uv[1], w0[b], i, j))
+    arr = np.asarray(rows)
+    vis = (rng.standard_normal(arr.shape[0])
+           + 1j * rng.standard_normal(arr.shape[0]))
+    return (arr[:, :3].astype(np.float32), arr[:, 3].astype(np.int32),
+            arr[:, 4].astype(np.int32), vis.astype(np.complex64))
+
+
+def _channel_args(vis, r):
+    return (np.asarray([r], np.float32),
+            np.asarray(vis.real, np.float32)[None],
+            np.asarray(vis.imag, np.float32)[None])
 
 
 class TestChannelRecordUpdate:
-    def test_geometry_reconstructs_absolute_positions(self, rng):
-        """dy_c must land the record at its channel-dilated ABSOLUTE grid
-        position: posy_c = N/2 + p_y·r·N + PADM, checked against
-        dy_c + subgrid-center (= cy + grid-center)."""
-        from ska_sdp_tpu.kernels.idg_pallas import (
-            idg_bin_records_multi,
-            idg_records_for_channel,
-        )
+    """A channel at ratio r = f_c/f_ref is gridded at its dilated
+    coordinates (uv·r, w·r about the grid center): with per-channel
+    weights its image equals the single-channel pipeline run at f_c."""
 
-        p, w, vis = _idg_problem(rng)
-        r = 1.015
-        base, vis_s, _ = idg_bin_records_multi(
-            (N, N), jnp.asarray(p), jnp.asarray(w),
-            jnp.asarray(vis.real, jnp.float32)[None],
-            jnp.asarray(vis.imag, jnp.float32)[None], subgrid=64,
-        )
-        recs, nm = idg_records_for_channel(base, vis_s[0], r, subgrid=64)
-        assert int(nm) == 0
-        flat = np.asarray(recs).transpose(1, 0, 2).reshape(8, -1)
-        base_np = np.asarray(base)
-        live = base_np[5] > 0
-        PADM = 32  # subgrid // 2
-        center = N // 2 + PADM
-        # sorted absolute reference position from the base rows
-        posy_ref = base_np[0] + base_np[3] + center
-        posy_chan_true = (posy_ref - center) * r + center
-        got = flat[0][: base_np.shape[1]] + base_np[3] + center
-        np.testing.assert_allclose(
-            got[live], posy_chan_true[live], atol=1e-3
-        )
-        # w scales linearly
-        np.testing.assert_allclose(
-            flat[2][: base_np.shape[1]][live], base_np[2][live] * r,
-            rtol=1e-6,
-        )
+    LAM = int(round(N / THETA))
+
+    @pytest.mark.parametrize("r", [0.97, 1.0, 1.02])
+    def test_idg_channel_equals_own_frequency_run(self, rng, r):
+        uvw, _, _, vis = _track_records(rng)
+        img, masked = spectral._idg_multi_pipeline(
+            uvw, np.float32(F_REF), *_channel_args(vis, r), theta=THETA,
+            lam=self.LAM, g=1, subgrid=32, exact_weights=True)
+        want, _ = ds._idg_pipeline(
+            uvw, np.float32(F_REF * r), vis, theta=THETA, lam=self.LAM,
+            subgrid=32, taper_beta=12.0)
+        assert int(np.asarray(masked)[0]) == 0
+        # central 75% FOV (the taper division amplifies rounding at the
+        # edges); uv·r and uv at f·r differ by float32 rounding, ~1e-5
+        assert _crop_rel(np.asarray(img)[0], np.asarray(want), N) < 1e-4
+
+    @pytest.mark.parametrize("r", [0.97, 1.0, 1.02])
+    def test_idg_aw_channel_equals_own_frequency_run(self, rng, r):
+        from ska_sdp_tpu.ops.idg_aw import aw_screens_host
+
+        uvw, a1, a2, vis = _track_records(rng)
+        ak = np.zeros((4, 15, 15), np.complex64)
+        ak[:, 7, 7] = 1.0
+        ak[:, 6:9, 6:9] += 0.05 * rng.standard_normal((4, 3, 3))
+        scr = aw_screens_host(ak, 64).astype(np.complex64)
+        img, nd = spectral._idg_aw_multi_pipeline(
+            scr, uvw, a1, a2, np.float32(F_REF), *_channel_args(vis, r),
+            theta=THETA, lam=self.LAM, g=1, subgrid=64, max_runs=1024,
+            exact_weights=True)
+        want, _, nd_want = ds._aw_idg_pipeline(
+            scr, uvw, a1, a2, np.float32(F_REF * r), vis, theta=THETA,
+            lam=self.LAM, subgrid=64, max_runs=1024)
+        assert int(np.asarray(nd)[0]) == int(nd_want) == 0
+        # central 75% FOV (the taper division amplifies rounding at the
+        # edges); uv·r and uv at f·r differ by float32 rounding, ~1e-5
+        assert _crop_rel(np.asarray(img)[0], np.asarray(want), N) < 1e-4
 
     def test_drift_overflow_masked_and_counted(self, rng):
-        """A ratio far outside the planned slack zeroes the escaping
-        records' vis rows and reports them in n_masked."""
-        from ska_sdp_tpu.kernels.idg_pallas import (
-            idg_bin_records_multi,
-            idg_records_for_channel,
-        )
+        """A run bound too small for a channel's records drops and
+        COUNTS them per channel, exactly as the single-channel op does
+        at that channel's coordinates."""
+        from ska_sdp_tpu.ops.idg_aw import aw_screens_host, idg_grid_aw
 
-        p, w, vis = _idg_problem(rng, lo=0.42)
-        base, vis_s, _ = idg_bin_records_multi(
-            (N, N), jnp.asarray(p), jnp.asarray(w),
-            jnp.asarray(vis.real, jnp.float32)[None],
-            jnp.asarray(vis.imag, jnp.float32)[None], subgrid=64,
-        )
-        recs, nm = idg_records_for_channel(base, vis_s[0], 1.3, subgrid=64)
-        assert int(nm) > 0
-        flat = np.asarray(recs).transpose(1, 0, 2).reshape(8, -1)
-        # masked records carry zero vis (branch-free drop) — same window
-        # predicate the kernel applies: floor(d+S/2+0.5)-s//2 in [0, S-s]
-        s, S = 15, 64
-        lo, hi = s // 2 - S / 2 - 0.5, S / 2 - s + s // 2 + 0.5
-        out = ~((flat[0] >= lo) & (flat[0] < hi)
-                & (flat[1] >= lo) & (flat[1] < hi))
-        assert np.any(out)
-        assert np.all(flat[3][out] == 0.0) and np.all(flat[4][out] == 0.0)
-
-    def test_idg_multi_matches_fresh_binning_interpret(self, rng):
-        """Bin once at f_ref + elementwise channel update == fresh
-        binning at the channel's own scaled coordinates (same kernel,
-        interpret mode).  Placement differences (centered vs plain
-        stride) contribute only float-accumulation noise ~1e-5."""
-        from ska_sdp_tpu.kernels.idg_pallas import (
-            idg_bin_records_multi,
-            idg_grid_from_records,
-            idg_gridder_pallas,
-            idg_records_for_channel,
-        )
-
-        p, w, vis = _idg_problem(rng)
-        vr = jnp.asarray(vis.real, jnp.float32)[None]
-        vi = jnp.asarray(vis.imag, jnp.float32)[None]
-        base, vis_s, starts = idg_bin_records_multi(
-            (N, N), jnp.asarray(p), jnp.asarray(w), vr, vi, subgrid=64,
-        )
-        for r in (0.97, 1.02):
-            recs, nm = idg_records_for_channel(base, vis_s[0], r,
-                                               subgrid=64)
-            assert int(nm) == 0
-            gr, gi = idg_grid_from_records(
-                recs, starts, (N, N), theta=THETA, subgrid=64,
-                interpret=True,
-            )
-            got = np.asarray(jax.lax.complex(gr, gi))
-            want = np.asarray(idg_gridder_pallas(
-                (N, N), jnp.asarray(p * r), jnp.asarray(w * r),
-                jnp.asarray(vis), theta=THETA, subgrid=64, interpret=True,
-            ))
-            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
-            assert rel < 1e-4, (r, rel)
-
-    def test_idg_aw_multi_matches_fresh_runs_interpret(self, rng):
-        """IDG-AW: one (pair, uv-tile) run sort at f_ref + per-channel
-        update == fresh run sorting at the channel's coordinates."""
-        from ska_sdp_tpu.kernels.idg_aw_pallas import (
-            idg_aw_grid_from_records,
-            idg_aw_grid_pallas,
-            idg_aw_records_for_channel,
-            idg_aw_run_records_multi,
-        )
-        from ska_sdp_tpu.ops.idg_aw import aw_screens
-
-        nant, ntime = 4, 48
-        pairs = [(i, j) for i in range(nant) for j in range(i + 1, nant)]
-        nbl = len(pairs)
-        u0 = rng.uniform(-0.25, 0.25, (nbl, 2))
-        du = rng.uniform(-15.0 / N, 15.0 / N, (nbl, 2))
-        w0 = rng.uniform(-250.0, 250.0, nbl)
-        dw = rng.uniform(-20.0, 20.0, nbl)
-        rows = []
-        for t in range(ntime):
-            ft = t / ntime
-            for b, (i, j) in enumerate(pairs):
-                uv = u0[b] + du[b] * ft
-                rows.append((uv[0], uv[1], w0[b] + dw[b] * ft, i, j))
-        arr = np.asarray(rows)
-        n = arr.shape[0]
-        p = np.zeros((n, 3), np.float32)
-        p[:, :2] = arr[:, :2]
-        w = arr[:, 2].astype(np.float32)
-        a1 = jnp.asarray(arr[:, 3].astype(np.int32))
-        a2 = jnp.asarray(arr[:, 4].astype(np.int32))
-        vis = (rng.standard_normal(n)
-               + 1j * rng.standard_normal(n)).astype(np.complex64)
-        mr = 8 * nbl + n // 128 + 64
-
-        s = 15
-        ak = np.zeros((nant, s, s), np.complex64)
-        ak[:, s // 2, s // 2] = 1.0
-        c = s // 2
-        ak[:, c - 2:c + 3, c - 2:c + 3] += 0.1 * (
-            rng.standard_normal((nant, 5, 5))
-            + 1j * rng.standard_normal((nant, 5, 5))
-        ).astype(np.complex64)
-        scr = aw_screens(jnp.asarray(ak), 64, dtype=jnp.complex64)
-        sre = jnp.real(scr).astype(jnp.float32)
-        sim = jnp.imag(scr).astype(jnp.float32)
-        pj, wj = jnp.asarray(p), jnp.asarray(w)
-        vr = jnp.asarray(vis.real, jnp.float32)[None]
-        vi = jnp.asarray(vis.imag, jnp.float32)[None]
-
-        base, vis_s, st, en, y0, x0, i1, i2, nd0, _hw = \
-            idg_aw_run_records_multi(
-                (N, N), pj, a1, a2, wj, vr, vi, subgrid=64,
-                max_runs=mr, drift_cells=4,
-            )
-        assert int(nd0) == 0
-        for r in (0.97, 1.02):
-            recs, nm = idg_aw_records_for_channel(base, vis_s[0], r,
-                                                  subgrid=64)
-            assert int(nm) == 0
-            gr, gi = idg_aw_grid_from_records(
-                recs, st, en, y0, x0, i1, i2, (N, N), sre, sim,
-                theta=THETA, subgrid=64, interpret=True,
-            )
-            got = np.asarray(jax.lax.complex(gr, gi))
-            gr2, gi2, nd2 = idg_aw_grid_pallas(
-                (N, N), pj * r, a1, a2, wj * r,
-                jnp.asarray(vis.real, jnp.float32),
-                jnp.asarray(vis.imag, jnp.float32),
-                sre, sim, theta=THETA, subgrid=64, max_runs=mr,
-                interpret=True,
-            )
-            assert int(nd2) == 0
-            want = np.asarray(jax.lax.complex(gr2, gi2))
-            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
-            assert rel < 1e-4, (r, rel)
-
+        uvw, a1, a2, vis = _track_records(rng)
+        ak = np.zeros((4, 15, 15), np.complex64)
+        ak[:, 7, 7] = 1.0
+        scr = aw_screens_host(ak, 64).astype(np.complex64)
+        ratios = np.asarray([0.98, 1.03], np.float32)
+        _, nd = spectral._idg_aw_multi_pipeline(
+            scr, uvw, a1, a2, np.float32(F_REF), ratios,
+            np.stack([vis.real, vis.real]).astype(np.float32),
+            np.stack([vis.imag, vis.imag]).astype(np.float32),
+            theta=THETA, lam=self.LAM, g=2, subgrid=64, max_runs=3)
+        nd = np.asarray(nd)
+        assert np.all(nd > 0)
+        uvw0 = uvw.astype(np.float64) * F_REF / C_LIGHT
+        for c, r in enumerate(ratios):
+            m = np.where(uvw0[:, 1:2] < 0, -uvw0, uvw0) * r
+            _, nd_c = idg_grid_aw(
+                (N, N), jnp.asarray(m / self.LAM, jnp.float32),
+                jnp.asarray(a1), jnp.asarray(a2),
+                jnp.asarray(m[:, 2], jnp.float32), jnp.asarray(vis),
+                jnp.asarray(scr), theta=THETA, subgrid=64, max_runs=3)
+            assert abs(int(nd[c]) - int(nd_c)) <= 2, (c, nd, int(nd_c))
 
 # ---------------------------------------------------------------------------
 # driver-level: cube channels == single-channel runs
@@ -449,7 +359,7 @@ class TestStreamingChannelZero:
 
 
 class TestShardedSpectral:
-    """Multi-chip spectral driver (VERDICT r4 #5): vis-parallel within
+    """Multi-chip spectral driver: vis-parallel within
     each channel group, per-channel partial grids psum'd over the mesh."""
 
     def test_sharded_cube_matches_local_driver(self, spectral_dataset,
@@ -495,7 +405,7 @@ class TestShardedSpectral:
             jnp.asarray(vis_mc.real.astype(prec.np_real)),
             jnp.asarray(vis_mc.imag.astype(prec.np_real)),
             theta=CFG.theta, lam=CFG.lam, g=2, subgrid=32,
-            use_pallas=False, exact_weights=False, drift_cells=0)
+            exact_weights=False)
         n_grid = int(round(CFG.theta * CFG.lam))
         for c in range(2):
             assert _crop_rel(cube[c], np.asarray(ref)[c], n_grid) < 1e-8
@@ -535,7 +445,7 @@ class TestCLIChannels:
 
     def test_cli_distributed_channels(self, tmp_path):
         """``--distributed --mode idg --channels 2`` runs the sharded
-        spectral driver over the 8-device virtual mesh (VERDICT r4 #5)
+        spectral driver over the 8-device virtual mesh
         and matches the single-device CLI run."""
         import subprocess
         import sys

@@ -51,7 +51,7 @@ class TestNativeRoundTrip:
         np.testing.assert_array_equal(nb.read_dataset(p, "/i", dtype=np.int64), i)
 
     def test_slice_reads_match_h5py(self, tmp_path, rng):
-        # hyperslab slice reads (out-of-core / sharded ingest, VERDICT r1 #5)
+        # hyperslab slice reads (out-of-core / sharded ingest)
         p = str(tmp_path / "nsl.h5")
         c = (rng.standard_normal((10, 3, 2))
              + 1j * rng.standard_normal((10, 3, 2))).astype(np.complex128)
@@ -204,7 +204,7 @@ class TestCrossBackend:
 
 class TestExtendedDtypes:
     """int32 / float32 / complex64 / {r,i}-int32 — the dtype completeness
-    pass of VERDICT r2 #9 (reference parity: plain INT reads/writes and the
+    pass (reference parity: plain INT reads/writes and the
     {r,i} int compound, /root/reference/hdf5/hdf5.cc:80,106,204)."""
 
     @pytest.mark.parametrize("dtype", [np.float32, np.int32, np.complex64])
